@@ -1,0 +1,65 @@
+"""Plain-PyTorch versions of the distance stage (the kernels' references).
+
+They run on any device: the dispatcher (``kernels/ops.py``) sends CPU
+tensors here, and ``chip_smoke.py`` compares each Hopper kernel with its
+plain version on the card. Indexing follows the JAX package's gather
+semantics: ids clamp into [0, N) (dummies, id −1, read row 0).
+"""
+from __future__ import annotations
+
+import torch
+
+DUMMY_DIST = 1e30
+
+
+def _rows(db, task_ids):
+    return db[task_ids.long().clamp(0, db.shape[0] - 1)].float()
+
+
+def distance_tasks_ref(db, queries, task_ids, task_slot, metric: str = "l2"):
+    """Plain version of the slot-gather distance stage.
+
+    Gathers the owning query row per task and reduces row-wise — O(T·d)
+    work, the same dataflow as the ``slot_gather`` kernel.
+
+    db:        (N, d)  database vectors
+    queries:   (R, d)  per-request-slot query vectors
+    task_ids:  (T,)    db row per task; -1 marks a masked dummy
+    task_slot: (T,)    owning request slot per task
+    Returns (T,) float32 distances; dummies get DUMMY_DIST.
+    """
+    x = _rows(db, task_ids)  # (T, d)
+    q = queries[task_slot.long()].float()  # (T, d)
+    if metric == "l2":
+        dist = ((x - q) ** 2).sum(-1)
+    elif metric == "ip":
+        dist = -(x * q).sum(-1)
+    else:
+        raise ValueError(metric)
+    return torch.where(task_ids >= 0, dist, DUMMY_DIST)
+
+
+def distance_tasks_onehot_ref(db, queries, task_ids, task_slot,
+                              metric: str = "l2"):
+    """Plain version of the matmul+one-hot distance stage.
+
+    Computes the full (T, R) task-by-slot Gram matrix then one-hot-selects
+    the owning column — O(T·R·d) work, the numerical oracle for the
+    ``matmul_onehot`` path (the slot-gather path must agree to 1e-4).
+    """
+    x = _rows(db, task_ids)  # (T, d)
+    q = queries.float()  # (R, d)
+    xq = x @ q.T  # (T, R)
+    R = q.shape[0]
+    onehot = task_slot.long()[:, None] == torch.arange(R, device=q.device)[None]
+    sel_xq = torch.where(onehot, xq, 0.0).sum(1)
+    if metric == "l2":
+        xnorm = (x * x).sum(1)
+        qnorm = (q * q).sum(1)
+        sel_qn = torch.where(onehot, qnorm[None, :], 0.0).sum(1)
+        dist = xnorm - 2.0 * sel_xq + sel_qn
+    elif metric == "ip":
+        dist = -sel_xq
+    else:
+        raise ValueError(metric)
+    return torch.where(task_ids >= 0, dist, DUMMY_DIST)

@@ -1,0 +1,109 @@
+"""The port stands alone: it imports neither jax nor the JAX package, its
+entry points default to the card and refuse to run on the CPU unless
+asked, and its config equals the JAX package's field for field."""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro.configs.base import VectorPoolConfig as JConfig  # noqa: E402
+from repro_torch.configs.base import VectorPoolConfig as TConfig  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+
+
+def test_port_imports_without_jax_or_repro():
+    """In a fresh interpreter where ``import jax`` fails, every port module
+    imports and no ``repro`` module gets loaded."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and "
+        "m.split('.')[0] in ('repro', 'jax', 'jaxlib')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_cuda_requested_without_card_raises(monkeypatch):
+    """Asking for the card where there is none raises; nothing quietly
+    runs on the CPU."""
+    from repro_torch import convert
+    from repro_torch.core import VectorPool
+    from repro_torch.core.continuous_batching import ContinuousBatchingEngine
+    from repro_torch.device import resolve_device
+    from repro_torch.vector.graph import build_knn_graph_exact, make_cagra_graph
+    from repro_torch.vector.online import OnlineIndex
+    from repro_torch.vector.ref import exact_knn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TConfig(num_vectors=64, dim=8, graph_degree=4, max_requests=2,
+                  top_m=8, task_batch=256, visited_slots=64)
+    db = np.zeros((64, 8), np.float32)
+    graph = np.zeros((64, 4), np.int32)
+    calls = [lambda: resolve_device(),
+             lambda: resolve_device("cuda:0"),
+             lambda: VectorPool(cfg, db, graph),
+             lambda: ContinuousBatchingEngine(cfg, db, graph),
+             lambda: OnlineIndex(db, graph),
+             lambda: convert.index_from_numpy(db, graph),
+             lambda: exact_knn(db, db[:2], 3),
+             lambda: exact_knn(db, db[:2], 3, device="cuda"),
+             lambda: build_knn_graph_exact(db, 3),
+             lambda: make_cagra_graph(db, 4),
+             lambda: make_cagra_graph(db, 4, device="cuda"),
+             lambda: make_cagra_graph(db, 4, exact_threshold=8)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # with a card, a graph above exact_threshold (NN-descent, CPU-only
+    # Python loops) is refused on the card instead of run on the host
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="NN-descent"):
+        make_cagra_graph(db, 4, exact_threshold=8)
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_vector_pool_config_equal_to_jax():
+    jf = {f.name: (f.type, f.default) for f in dataclasses.fields(JConfig)}
+    tf = {f.name: (f.type, f.default) for f in dataclasses.fields(TConfig)}
+    assert list(jf) == list(tf)
+    assert jf == tf
+    assert TConfig.__dataclass_params__.frozen
