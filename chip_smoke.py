@@ -26,6 +26,19 @@ line is printed only when every phase passed):
     queries; recall within 0.01 of phase 3's on the same queries
   5 launch counts: each kernel launched on its path (counts set to 0
     just before the path is driven and read just after)
+  6 the attention kernels vs their plain versions on the card: prefill
+    (B=4, S in {512, 2048}, 40 heads over 10 kv heads, hd=128, bf16 and
+    f32, causal; a ragged S=1000; internvl2's 14-over-2 heads at hd=64)
+    and decode (B=4, S_max=544, cur_len in {0, 271, 543}, garbage past
+    cur_len); per-launch device time, the plain version's time, the time
+    of torch's scaled_dot_product_attention on the same inputs (a
+    yardstick only: the port never calls it) and the bound
+  7 the serving path at full width: RealServer on phi3-medium-14b (40
+    layers, d_model 5120, bf16, random weights from seed 0) with serve.py's
+    pool, 4 requests of 512 prompt tokens, 32 new tokens, a RAG probe every
+    8 tokens; launches of every kernel on that path
+  8 the same entry point on the card and on the CPU: phi3's widths cut to
+    2 layers, float32, one set of weights; equal tokens, close logits
 
 The pool's clock is simulated and priced by the JAX package's V5E model;
 no latency from that clock is printed. Every time printed here is a host
@@ -33,9 +46,11 @@ wall clock or a CUDA-event time measured on the card in this run.
 """
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -44,10 +59,22 @@ sys.path.insert(0, str(ROOT / "src"))
 N, D_IM, NUM_QUERIES = 1_000_000, 128, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+# kernel -> (source in the repo, the TPU kernel it replaces)
 KERNELS = {
-    "distance_slot_gather": ("slot_gather", "src/repro/kernels/distance.py:102"),
-    "distance_onehot": ("matmul_onehot", "src/repro/kernels/distance.py:42"),
+    "distance_slot_gather": ("src/repro_torch/csrc/distance.cu",
+                             "src/repro/kernels/distance.py:102"),
+    "distance_onehot": ("src/repro_torch/csrc/distance.cu",
+                        "src/repro/kernels/distance.py:42"),
+    "flash_attention": ("src/repro_torch/csrc/attention.cu",
+                        "src/repro/kernels/flash_attention.py:21"),
+    "decode_attention": ("src/repro_torch/csrc/attention.cu",
+                         "src/repro/kernels/decode_attention.py:22"),
 }
+DISTANCE = ("distance_slot_gather", "distance_onehot")
+# the serving path's pool: launch/serve.py's main()
+SERVE_POOL = dict(num_vectors=2000, dim=64, max_requests=16, top_m=16,
+                  task_batch=512, visited_slots=256, top_k=5)
 
 
 def check(cond, msg):
@@ -70,7 +97,7 @@ def quickstart_stream(n, seed=0):
     return out
 
 
-def device_ms(fn, arg_sets, n=240):
+def device_ms(fn, arg_sets, n=240, hold_cycles=2_000_000_000):
     """Device time per call (ms): (median of a CUDA event pair around each
     call, first start to last end over ``n``). The stream is held by a
     sleep kernel while the host enqueues, so the events time the device
@@ -84,7 +111,7 @@ def device_ms(fn, arg_sets, n=240):
            torch.cuda.Event(enable_timing=True)) for _ in range(n)]
     # ~1 s of GPU clock: longer than the host takes to enqueue n calls of
     # the slowest function timed here (~0.1 s for 240 plain one-hot calls)
-    torch.cuda._sleep(2_000_000_000)
+    torch.cuda._sleep(hold_cycles)
     for i, (a, b) in enumerate(ev):
         a.record()
         fn(*arg_sets[i % len(arg_sets)])
@@ -130,7 +157,7 @@ def phase_kernels(db_t, queries):
             "distance_onehot": distance.distance_onehot}
     dummy = torch.tensor(1e30, dtype=torch.float32, device=dev)
     results, outs = {}, {}
-    for name in KERNELS:
+    for name in DISTANCE:
         max_err = 0.0
         for metric in ("l2", "ip"):
             for args in sets[:8]:
@@ -181,7 +208,7 @@ def phase_kernels(db_t, queries):
         nflops.append(int(v.sum()) * D_IM)
     nbytes, nflops = float(np.mean(nbytes)), float(np.mean(nflops))
     flop_per_elem = {"distance_slot_gather": 3, "distance_onehot": 6}  # l2
-    for name in KERNELS:
+    for name in DISTANCE:
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = flop_per_elem[name] * nflops / FP32_FLOPS * 1e3
         fn_k = lambda *a, f=kern[name]: f(*a, metric="l2")  # noqa: E731
@@ -242,6 +269,249 @@ def results_of(pool, n):
     return ids, np.asarray([by[i].extends_used for i in range(n)])
 
 
+def close(out, want, tol):
+    """(max |out - want|, within atol = rtol = tol), both in float32."""
+    err = (out.float() - want.float()).abs()
+    ok = bool((err <= tol + tol * want.float().abs()).all())
+    return err.max().item(), ok
+
+
+def attention_bound(nbytes, flops, dtype):
+    """Least time (ms) and what bounds it: bytes over the HBM rate vs
+    flops over the peak for the type (bf16 tensor cores, fp32 cores)."""
+    import torch
+
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_attention():
+    """Phase 6: both attention kernels vs their plain versions on the card.
+    Tolerance (atol = rtol): f32 1e-4, the kernels sum up to 2048 terms in
+    another order than the plain version; bf16 2e-2, tests/test_kernels.py's
+    (the output rounds to bf16). Two runs must give the same bits."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, decode_attention, ref
+
+    dev = torch.device("cuda")
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+    def randn(shape, seed, dtype):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    res = {"flash_attention": {"max_abs_err": 0.0, "cases": []},
+           "decode_attention": {"max_abs_err": 0.0, "cases": []}}
+    # ---- B3: prefill flash attention, causal
+    flash_cases = [(4, S, 40, 10, 128, dt) for S in (512, 2048)
+                   for dt in (torch.bfloat16, torch.float32)]
+    flash_cases += [(4, 1000, 40, 10, 128, torch.bfloat16),
+                    (4, 512, 14, 2, 64, torch.bfloat16)]
+    for i, (B, S, H, Hkv, hd, dt) in enumerate(flash_cases):
+        q = randn((B, S, H, hd), 3 * i, dt)
+        k = randn((B, S, Hkv, hd), 3 * i + 1, dt)
+        v = randn((B, S, Hkv, hd), 3 * i + 2, dt)
+        out = flash_attention.flash_attention(q, k, v, causal=True)
+        again = flash_attention.flash_attention(q, k, v, causal=True)
+        want = ref.mha_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err, ok = close(out, want, tol[dt])
+        check(ok, f"flash_attention {(B, S, H, Hkv, hd, dt)}: max |kernel - "
+                  f"plain| {err} above {tol[dt]}")
+        check(torch.equal(out, again), "flash_attention: two runs differ")
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+
+        lib_err = (sdpa(q, k, v).transpose(1, 2).float()
+                   - want.float()).abs().max().item()
+        args = [(q, k, v)]
+        n = 10 if S > 1000 else 40
+        ms = device_ms(lambda *a: flash_attention.flash_attention(*a), args, n)[0]
+        plain_ms = device_ms(lambda *a: ref.mha_ref(*a), args, n)[0]
+        lib_ms = device_ms(sdpa, args, n)[0]
+        elt = q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
+        flops = 4 * B * H * hd * S * (S + 1) // 2  # causal: row i sees i+1 keys
+        bound, by = attention_bound(nbytes, flops, dt)
+        res["flash_attention"]["max_abs_err"] = max(
+            res["flash_attention"]["max_abs_err"], err)
+        res["flash_attention"]["cases"].append(dict(
+            shape=(B, S, H, Hkv, hd), dtype=str(dt).split(".")[-1],
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            library_err=lib_err, bound_ms=bound, bound_by=by))
+        del q, k, v, out, again, want
+    # ---- B4: decode attention over the serving cache (S_max = 512 + 32)
+    B, S, H, Hkv, hd = 4, 544, 40, 10, 128
+    for j, dt in enumerate((torch.bfloat16, torch.float32)):
+        q = randn((B, H, hd), 100 + j, dt)
+        k = randn((B, S, Hkv, hd), 110 + j, dt)
+        v = randn((B, S, Hkv, hd), 120 + j, dt)
+        for cur in (0, 271, 543):
+            out = decode_attention.decode_attention(q, k, v, cur)
+            again = decode_attention.decode_attention(q, k, v, cur)
+            want = ref.decode_attn_ref(q, k, v, cur)
+            torch.cuda.synchronize()
+            err, ok = close(out, want, tol[dt])
+            check(ok, f"decode_attention {dt} cur_len={cur}: max |kernel - "
+                      f"plain| {err} above {tol[dt]}")
+            check(torch.equal(out, again), "decode_attention: two runs differ")
+            res["decode_attention"]["max_abs_err"] = max(
+                res["decode_attention"]["max_abs_err"], err)
+            if cur < S - 1:  # garbage past cur_len changes nothing
+                k2, v2 = k.clone(), v.clone()
+                k2[:, cur + 1:] = 1e6
+                v2[:, cur + 1:] = -1e6
+                out2 = decode_attention.decode_attention(q, k2, v2, cur)
+                torch.cuda.synchronize()
+                check(torch.equal(out, out2),
+                      f"decode_attention reads past cur_len={cur}")
+            if dt != torch.bfloat16:
+                continue
+            mask = (torch.arange(S, device=dev) <= cur)[None, None, None, :]
+
+            def sdpa(q, k, v, mask=mask):
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+            lib_err = (sdpa(q, k, v).float() - want.float()).abs().max().item()
+            args = [(q, k, v, cur)]
+            ms = device_ms(lambda *a: decode_attention.decode_attention(*a),
+                           args, 200, hold_cycles=200_000_000)[0]
+            plain_ms = device_ms(lambda *a: ref.decode_attn_ref(*a), args,
+                                 200, hold_cycles=200_000_000)[0]
+            lib_ms = device_ms(lambda q, k, v, c: sdpa(q, k, v), args, 200,
+                               hold_cycles=200_000_000)[0]
+            n_valid = cur + 1
+            nbytes = (2 * q.numel() + 2 * B * n_valid * Hkv * hd) * q.element_size()
+            bound, by = attention_bound(nbytes, 4 * B * H * hd * n_valid, dt)
+            res["decode_attention"]["cases"].append(dict(
+                shape=(B, S, H, Hkv, hd), cur_len=cur,
+                dtype=str(dt).split(".")[-1], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
+                bound_ms=bound, bound_by=by))
+    return res
+
+
+def phase_serve():
+    """Phase 7: RealServer at phi3-medium-14b's full width on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import VectorPoolConfig
+    from repro_torch.kernels import decode_attention, distance, flash_attention
+    from repro_torch.launch.serve import RealServer
+
+    cfg = get_config("phi3-medium-14b")
+    B, S, NEW = 4, 512, 32
+    t0 = time.perf_counter()
+    server = RealServer(cfg, VectorPoolConfig(**SERVE_POOL), rag_interval=8,
+                        seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in (server.params["embed"],
+                                       server.params["lm_head"]))
+    n_params += sum(w.numel() for blk in server.params["blocks"]
+                    for part in blk.values()
+                    for w in (part.values() if isinstance(part, dict)
+                              else [part]))
+    finite = {"all": torch.ones((), dtype=torch.bool, device="cuda"),
+              "steps": 0}
+    prefill, decode = server._prefill, server._decode
+
+    def watched(fn):
+        def run(*a):
+            lg, caches = fn(*a)
+            finite["all"] &= torch.isfinite(lg).all()  # no host sync
+            finite["steps"] += 1
+            return lg, caches
+        return run
+
+    server._prefill, server._decode = watched(prefill), watched(decode)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (distance, flash_attention, decode_attention):
+        mod.reset_launches()
+    toks, stats = server.generate(prompts, max_new=NEW)
+    torch.cuda.synchronize()
+    launches = {**distance.launches, **flash_attention.launches,
+                **decode_attention.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(toks.shape == (B, NEW), f"tokens shape {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "a generated token is out of the vocabulary")
+    check(bool(finite["all"].item()) and finite["steps"] == 1 + S + NEW,
+          f"non-finite logits (or {finite['steps']} model calls)")
+    check(launches["flash_attention"] == cfg.num_layers,
+          f"flash_attention launched {launches['flash_attention']} times, "
+          f"not once per layer ({cfg.num_layers})")
+    check(launches["decode_attention"] == cfg.num_layers * (S + NEW),
+          f"decode_attention launched {launches['decode_attention']} times, "
+          f"not {cfg.num_layers * (S + NEW)}")
+    check(launches["distance_slot_gather"] >= B,
+          f"distance_slot_gather launched {launches['distance_slot_gather']}"
+          " times on the serving path")
+    del server
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, init_s=init_s, params=n_params, toks=toks,
+                stats=stats, launches=launches, peak_gib=peak_gib,
+                tok_per_s=B * NEW / stats["decode_s"])
+
+
+def phase_card_vs_cpu():
+    """Phase 8: one set of weights at phi3's widths (2 layers, float32)
+    through RealServer on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import VectorPoolConfig
+    from repro_torch.launch.serve import RealServer
+    from repro_torch.models import model_zoo
+
+    cfg = dataclasses.replace(get_config("phi3-medium-14b"), num_layers=2,
+                              dtype="float32")
+    pool = VectorPoolConfig(**SERVE_POOL)
+    t0 = time.perf_counter()
+    cpu = RealServer(cfg, pool, rag_interval=8, seed=0, device="cpu")
+    card = RealServer(cfg, pool, rag_interval=8, seed=0, device="cuda",
+                      params=convert.lm_params_from_numpy(
+                          cfg, convert.lm_params_to_numpy(cpu.params), "cuda"))
+    setup_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(2, 32)).astype(np.int32)
+    t0 = time.perf_counter()
+    toks_card, _ = card.generate(prompts, max_new=8)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks_cpu, _ = cpu.generate(prompts, max_new=8)
+    cpu_s = time.perf_counter() - t0
+    check(np.array_equal(toks_card, toks_cpu),
+          f"card tokens {toks_card.tolist()} != CPU tokens "
+          f"{toks_cpu.tolist()}")
+    lg = {}
+    for name, server in (("card", card), ("cpu", cpu)):
+        batch = {"tokens": torch.as_tensor(prompts, device=server.device)}
+        lg[name] = model_zoo.prefill_fn(cfg, server.params, batch)[0].cpu()
+    # atol = rtol = 1e-3: float32 sums over up to 17920 terms in other
+    # orders (cuBLAS and the kernels vs the CPU's BLAS), through 2 layers
+    err, ok = close(lg["card"], lg["cpu"], 1e-3)
+    check(ok, f"prefill logits card vs CPU differ by {err}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return dict(toks=toks_card, logit_err=err, setup_s=setup_s,
+                card_s=card_s, cpu_s=cpu_s)
+
+
 def main():
     import numpy as np
     import torch
@@ -261,12 +531,15 @@ def main():
     kind = torch.cuda.get_device_name(0)
     torch.backends.cuda.matmul.allow_tf32 = False  # full-fp32 references
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    _build.load("distance")  # csrc/distance.cu: both kernels
+    t_start = t0 = time.perf_counter()
+    sources = ("distance", "attention")  # csrc/<name>.cu, one nvcc each
+    with ThreadPoolExecutor(len(sources)) as ex:
+        list(ex.map(_build.load, sources))  # a failed build raises here
     build_s = time.perf_counter() - t0
     print(f"phase 1 environment: {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | devices {torch.cuda.device_count()} | "
-          f"kernels built in {build_s:.2f} s (distance)", flush=True)
+          f"kernels built in {build_s:.2f} s ({', '.join(sources)}, in "
+          "parallel)", flush=True)
 
     t0 = time.perf_counter()
     db, queries = make_dataset(N, D_IM, seed=0, num_queries=NUM_QUERIES)
@@ -361,14 +634,63 @@ def main():
           f"{m.extend_steps} slot_gather, {pool4.metrics.extend_steps} "
           f"onehot)", flush=True)
 
-    line = [{"name": name, "route": "cuda",
-             "source": "src/repro_torch/csrc/distance.cu",
-             "replaces": KERNELS[name][1], "launches": launches[name],
-             "max_abs_err": kres[name]["max_abs_err"],
-             "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"],
-             "bound_ms": kres[name]["bound_ms"],
-             "bound_by": kres[name]["bound_by"], "library_ms": None}
-            for name in KERNELS]
+    print(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # ---- phase 6: attention kernels vs plain versions ----------------------
+    t0 = time.perf_counter()
+    ares = phase_attention()
+    for name, r in ares.items():
+        print(f"phase 6 {name}: max_abs_err={r['max_abs_err']:.3g} | " + "; ".join(
+            f"{c['shape']}{' cur_len=%d' % c['cur_len'] if 'cur_len' in c else ''}"
+            f" {c['dtype']} err={c['max_abs_err']:.3g} ms={c['ms']:.5f} "
+            f"plain_ms={c['plain_ms']:.5f} library_ms(sdpa)={c['library_ms']:.5f}"
+            f" (vs plain {c['library_err']:.3g}) bound_ms={c['bound_ms']:.6f} "
+            f"({c['bound_by']})" for c in r["cases"]), flush=True)
+    print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 7: the serving path at full width ---------------------------
+    t0 = time.perf_counter()
+    srv = phase_serve()
+    st = srv["stats"]
+    print(f"phase 7 serve {srv['cfg'].name}: {srv['params'] / 1e9:.3f}e9 "
+          f"weights (bf16) made on the card in {srv['init_s']:.1f} s | 4 "
+          f"requests x 512 prompt + 32 new tokens: ttft_s={st['ttft_s']:.3f} "
+          f"decode_s={st['decode_s']:.3f} ({srv['tok_per_s']:.2f} decoded "
+          f"tokens per wall-second), rag_probes={st['rag_probes']}, "
+          f"stalls={st['stalls']}, peak allocated {srv['peak_gib']:.2f} GiB, "
+          f"launches {srv['launches']} | first request's tokens "
+          f"{srv['toks'][0].tolist()} | {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # ---- phase 8: card vs CPU through the same entry point -----------------
+    t0 = time.perf_counter()
+    cmp_ = phase_card_vs_cpu()
+    print(f"phase 8 card vs cpu (phi3 widths, 2 layers, f32): tokens equal "
+          f"{cmp_['toks'].tolist()}, prefill logits max |card - cpu| "
+          f"{cmp_['logit_err']:.3g} (atol = rtol = 1e-3) | set-up "
+          f"{cmp_['setup_s']:.1f} s, generate on the card {cmp_['card_s']:.1f}"
+          f" s, on the CPU {cmp_['cpu_s']:.1f} s | "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    launches.update(flash_attention=srv["launches"]["flash_attention"],
+                    decode_attention=srv["launches"]["decode_attention"])
+    # B3/B4 numbers at the serving path's shapes: prefill B=4, S=512, bf16;
+    # decode at the longest step (cur_len = 543), bf16
+    main_case = {"flash_attention": ares["flash_attention"]["cases"][0],
+                 "decode_attention": ares["decode_attention"]["cases"][-1]}
+    line = []
+    for name, (source, replaces) in KERNELS.items():
+        r = kres.get(name) or main_case[name]
+        line.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": (kres[name] if name in kres else ares[name])[
+                "max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms")})
+    print(f"all phases took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

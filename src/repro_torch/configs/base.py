@@ -1,12 +1,116 @@
-"""Vector-pool configuration for the PyTorch port.
+"""Model and vector-pool configurations for the PyTorch port.
 
-A copy of ``VectorPoolConfig`` (the only config the vector-pool slice
-needs): the same fields with the same defaults, so one config drives both
-packages. ``tests/test_torch_isolation.py`` holds the two equal.
+Copies of ``MoEConfig``, ``MLAConfig``, ``ModelConfig`` and
+``VectorPoolConfig``: the same fields with the same defaults, so one config
+drives both packages. ``tests/test_torch_isolation.py`` holds them equal.
+``ModelConfig.param_count`` counts through the port's own
+``models/model_zoo.py::analytic_param_count``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Model configs
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts sub-config (fine-grained, shared + routed)."""
+
+    num_experts: int  # routed experts
+    num_shared_experts: int  # always-on shared experts
+    top_k: int  # routed experts activated per token
+    expert_ffn: int  # d_ff of each routed expert
+    shared_ffn: int = 0  # d_ff of the shared expert(s); 0 => expert_ffn
+    router_dtype: str = "float32"
+    capacity_factor: float = 1.25  # dispatch capacity per expert
+
+    @property
+    def shared_ffn_dim(self) -> int:
+        return self.shared_ffn or self.expert_ffn
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention sub-config."""
+
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One assigned architecture (published numbers; see configs/<id>.py)."""
+
+    name: str
+    family: str  # "dense" | "moe" | "hybrid" | "ssm" | "audio" | "vlm"
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 => d_model // num_heads
+    # block structure
+    block_kind: str = "attn"  # "attn" | "mamba_attn" | "xlstm" | "encdec"
+    attn_kind: str = "gqa"  # "gqa" | "mla"
+    mlp_kind: str = "swiglu"  # "swiglu" | "geglu" | "moe" | "none"
+    moe: Optional[MoEConfig] = None
+    moe_every: int = 1  # MoE FFN on layers where (idx % moe_every == 0)
+    mla: Optional[MLAConfig] = None
+    # misc published details
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    # MTP (deepseek-v3 multi-token prediction)
+    mtp_depth: int = 0
+    # hybrid (jamba): one attention layer every `attn_every` layers
+    attn_every: int = 0
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    # xlstm: pattern of block kinds, cycled over layers
+    xlstm_pattern: Tuple[str, ...] = ()
+    # enc-dec split (seamless): encoder layers + decoder layers = num_layers
+    encoder_layers: int = 0
+    # modality frontend stub: inputs arrive as precomputed embeddings
+    frontend: str = "none"  # "none" | "audio" | "vision"
+    frontend_tokens: int = 0  # embeddings prepended by the stub frontend
+    max_seq_len: int = 32768
+    dtype: str = "bfloat16"
+    # attention scaling for sub-quadratic support declaration
+    subquadratic: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def q_heads_per_kv(self) -> int:
+        return self.num_heads // max(self.num_kv_heads, 1)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for roofline MODEL_FLOPS)."""
+        from repro_torch.models.model_zoo import analytic_param_count
+
+        return analytic_param_count(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.model_zoo import analytic_param_count
+
+        return analytic_param_count(self, active_only=True)
+
+
+# ---------------------------------------------------------------------------
+# Trinity vector-pool config (paper §3.2/§3.3)
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

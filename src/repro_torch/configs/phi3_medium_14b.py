@@ -1,0 +1,34 @@
+"""phi3-medium-14b — dense RoPE SwiGLU GQA.
+
+[arXiv:2404.14219; unverified] 40L d_model=5120 40H (GQA kv=10) d_ff=17920
+vocab=100352.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-medium-14b",
+    family="dense",
+    num_layers=40,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=10,
+    d_ff=17920,
+    vocab_size=100352,
+    attn_kind="gqa",
+    mlp_kind="swiglu",
+)
+
+SMOKE_CONFIG = ModelConfig(
+    name="phi3-medium-14b-smoke",
+    family="dense",
+    num_layers=2,
+    d_model=64,
+    num_heads=4,
+    num_kv_heads=2,
+    d_ff=128,
+    vocab_size=512,
+    attn_kind="gqa",
+    mlp_kind="swiglu",
+    max_seq_len=128,
+    dtype="float32",
+)

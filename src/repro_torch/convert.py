@@ -1,6 +1,7 @@
 """State carried into the port from numpy (the port's counterpart of
 loading weights): the index arrays, a whole engine state pulled from the
-JAX package with ``jax.device_get``, and host-side slot checkpoints.
+JAX package with ``jax.device_get``, host-side slot checkpoints, and a
+language model's parameter tree.
 
 Inputs are duck-typed numpy views, so this module needs neither JAX nor the
 JAX package: anything with the named attributes converts.
@@ -62,3 +63,57 @@ def checkpoint_from_numpy(ckpt):
         extends=int(ckpt.extends),
         budget=int(getattr(ckpt, "budget", 0)),
         top_k=None if top_k is None else int(top_k))
+
+
+def _layer_tree(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer_tree(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def lm_params_from_numpy(cfg, params, device="cuda"):
+    """The port's parameters from a dense LM parameter tree in the JAX
+    package's layout with numpy leaves (``jax.device_get`` of
+    ``model_zoo.init_params``): ``embed``, ``final_norm``, ``lm_head``
+    (untied) and ``blocks["l0"]``, each leaf stacked on a leading layer
+    axis. Returns the port's tree (``blocks`` a list of per-layer dicts)
+    on ``device`` in ``cfg.dtype``; values are carried bit for bit
+    (bfloat16 leaves pass exactly through float32)."""
+    from repro_torch.models.transformer import DTYPES, check_supported
+
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = DTYPES[cfg.dtype]
+
+    def put(tree):
+        if isinstance(tree, dict):
+            return {k: put(v) for k, v in tree.items()}
+        return torch.tensor(np.asarray(tree, np.float32)).to(
+            device=dev, dtype=dtype)
+
+    stacked = params["blocks"]["l0"]
+    n = len(np.asarray(stacked["ln1"]))
+    if n != cfg.num_layers:
+        raise ValueError(f"tree has {n} layers, cfg {cfg.num_layers}")
+    out = {k: put(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = [put(_layer_tree(stacked, i)) for i in range(n)]
+    return out
+
+
+def lm_params_to_numpy(params):
+    """The inverse of ``lm_params_from_numpy``: the JAX package's layout
+    (``blocks["l0"]`` stacked on a leading layer axis) with float32 numpy
+    leaves, exact for float32 and bfloat16 parameters."""
+    def get(tree):
+        if isinstance(tree, dict):
+            return {k: get(v) for k, v in tree.items()}
+        return tree.detach().float().cpu().numpy()
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    out = {k: get(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {"l0": stack([get(b) for b in params["blocks"]])}
+    return out

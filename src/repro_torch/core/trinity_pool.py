@@ -102,6 +102,9 @@ class VectorPool:
                 "ROADMAP Queue A item 7")
         self.cfg = cfg
         self.device = resolve_device(device)
+        # frozen corpus as a host numpy view (the JAX pool's ``db``; the
+        # device copy lives in ``index``)
+        self.db = db if isinstance(db, np.ndarray) else db.detach().cpu().numpy()
         self.metrics = PoolMetrics()
         self.min_replicas = min_replicas
         self.max_replicas = max_replicas

@@ -1,0 +1,98 @@
+"""Prefill attention as a hand-written Hopper kernel.
+
+``flash_attention`` replaces the TPU kernel
+``repro/kernels/flash_attention.py::_flash_kernel``: blocked causal GQA
+attention with an online softmax. The kernel is in ``csrc/attention.cu``
+(its header gives the design and the bound on the card); its plain-PyTorch
+version is ``kernels/ref.py::mha_ref``.
+
+The wrapper takes CUDA tensors only: it checks every input, allocates the
+output with ``torch.empty``, launches on the current stream without
+synchronising, raises on a launch error, and counts its launches in
+``launches``. q, k and v are read through their strides (the last dimension
+must be contiguous), so views of the projections need no copy.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+# kernel name -> launches since the last reset (read by chip_smoke.py to
+# prove the serving path went through the kernel)
+launches = {"flash_attention": 0}
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 9
+             + [ctypes.c_int, ctypes.c_void_p])
+_bound = {}  # entry name -> its ctypes function, typed once
+
+
+def _entry():
+    fn = _bound.get("flash")
+    if fn is None:
+        fn = _build.load("attention").repro_flash_attention
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _bound["flash"] = fn
+    return fn
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def check_inputs(q, k, v) -> None:
+    """Raise ValueError on anything the kernel does not take: q
+    (B, Sq, H, hd) and k/v (B, Sk, Hkv, hd) of one dtype (float32 or
+    bfloat16) on one device, H a multiple of Hkv, hd in ``HEAD_DIMS``,
+    the head dimension contiguous, and no empty dimension."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be (B,Sq,H,hd) and k, v (B,Sk,Hkv,hd) of "
+                         f"one shape, got {tuple(q.shape)}, {tuple(k.shape)},"
+                         f" {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)} in batch or head dim")
+    Hkv = k.shape[2]
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"H={H} is not a multiple of Hkv={Hkv}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in DTYPES or t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}; q, k, v must share one "
+                             f"dtype of {tuple(DTYPES)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}'s head dimension must be contiguous")
+    if min(B, Sq, k.shape[1]) == 0:
+        raise ValueError("q and k must be non-empty")
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """(B, Sq, H, hd) attention output in ``q.dtype``; one kernel launch."""
+    check_inputs(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention takes CUDA tensors, got {q.device}")
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    fn = _entry()
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 DTYPES[q.dtype], B, Sq, Sk, H, Hkv, hd,
+                 q.stride(0), q.stride(1), q.stride(2),
+                 k.stride(0), k.stride(1), k.stride(2),
+                 v.stride(0), v.stride(1), v.stride(2), int(bool(causal)),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    launches["flash_attention"] += 1
+    return out

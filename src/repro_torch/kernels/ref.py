@@ -1,15 +1,21 @@
-"""Plain-PyTorch versions of the distance stage (the kernels' references).
+"""Plain-PyTorch versions of the port's kernels (their references): the
+distance stage and prefill/decode attention.
 
-They run on any device: the dispatcher (``kernels/ops.py``) sends CPU
+They run on any device: the dispatchers (``kernels/ops.py``) send CPU
 tensors here, and ``chip_smoke.py`` compares each Hopper kernel with its
-plain version on the card. Indexing follows the JAX package's gather
-semantics: ids clamp into [0, N) (dummies, id −1, read row 0).
+plain version on the card. Distance indexing follows the JAX package's
+gather semantics: ids clamp into [0, N) (dummies, id −1, read row 0).
+Attention computes in float32 inside and returns ``q.dtype``, as the JAX
+package's ``kernels/ref.py`` does.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 DUMMY_DIST = 1e30
+NEG_INF = -1e30
 
 
 def _rows(db, task_ids):
@@ -63,3 +69,36 @@ def distance_tasks_onehot_ref(db, queries, task_ids, task_slot,
     else:
         raise ValueError(metric)
     return torch.where(task_ids >= 0, dist, DUMMY_DIST)
+
+
+def mha_ref(q, k, v, causal: bool = True):
+    """q: (B,Sq,H,hd), k/v: (B,Sk,Hkv,hd) -> (B,Sq,H,hd). GQA broadcast:
+    query head h reads kv head h // (H/Hkv); causal mask qpos >= kpos over
+    row indices; scale 1/sqrt(hd)."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, g, hd).float()
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def decode_attn_ref(q, k, v, cur_len: int):
+    """q: (B,H,hd) single step; k/v: (B,S,Hkv,hd); positions <= cur_len
+    attend. Returns (B,H,hd)."""
+    B, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, Hkv, g, hd).float()
+    scores = torch.einsum("bkgh,bskh->bkgs", qg, k.float()) / math.sqrt(hd)
+    valid = torch.arange(S, device=q.device) <= cur_len
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", probs, v.float())
+    return out.reshape(B, H, hd).to(q.dtype)

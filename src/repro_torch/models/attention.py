@@ -1,0 +1,105 @@
+"""GQA/MQA/MHA attention: causal prefill through the flash-attention kernel
+and one-token decode over a KV cache through the decode-attention kernel
+(the JAX package's ``models/attention.py``; its XLA paths
+``attend_blocked`` and ``_cached_attention_core`` compute the functions
+that ``kernels/ops.py`` dispatches here).
+
+Shapes:
+  x:      (B, S, d_model)
+  q:      (B, S, H, hd)        k/v: (B, S, Hkv, hd)
+  cache:  {"k": (B, S_max, Hkv, hd), "v": ...}   (per layer)
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+
+
+def init_attention(gen: torch.Generator, cfg, dtype):
+    hd = cfg.resolved_head_dim
+    p = {
+        "wq": layers.dense_init(gen, cfg.d_model, cfg.num_heads * hd, dtype),
+        "wk": layers.dense_init(gen, cfg.d_model, cfg.num_kv_heads * hd, dtype),
+        "wv": layers.dense_init(gen, cfg.d_model, cfg.num_kv_heads * hd, dtype),
+        "wo": layers.dense_init(gen, cfg.num_heads * hd, cfg.d_model, dtype),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", cfg.num_heads), ("bk", cfg.num_kv_heads),
+                        ("bv", cfg.num_kv_heads)):
+            p[name] = torch.zeros((n * hd,), dtype=dtype, device=gen.device)
+    return p
+
+
+def _project_qkv(params, x, cfg):
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return (q.reshape(B, S, cfg.num_heads, hd),
+            k.reshape(B, S, cfg.num_kv_heads, hd),
+            v.reshape(B, S, cfg.num_kv_heads, hd))
+
+
+def attention_forward(params, x, cfg, positions=None, causal: bool = True):
+    """Full-sequence causal attention (prefill). Returns (out (B,S,d),
+    (k, v)) with k after rotary embedding, as the cache stores it."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg)
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    cos, sin = layers.rope_angles(positions, cfg.resolved_head_dim,
+                                  cfg.rope_theta)
+    q = layers.apply_rope(q, cos, sin)
+    k = layers.apply_rope(k, cos, sin)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    return out.reshape(B, S, -1) @ params["wo"], (k, v)
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype, device):
+    hd = cfg.resolved_head_dim
+    shape = (batch, max_len, cfg.num_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_step_attention(params, x_step, cache, cur_len: int, cfg,
+                          seq_axis: Optional[str] = None):
+    """One-token decode over a KV cache.
+
+    x_step: (B, 1, d). cur_len: host int — number of tokens already in the
+    cache (the new token's position). The cache is updated IN PLACE (the
+    JAX package returns a new one): the new token's k/v are written at
+    ``cur_len`` and the same dict is returned. Returns (out (B,1,d), cache).
+    """
+    if seq_axis is not None:
+        raise NotImplementedError(
+            "a sequence-sharded KV cache (seq_axis) needs a device mesh; on "
+            "one card the port has none: ROADMAP Queue A item 14")
+    B = x_step.shape[0]
+    hd = cfg.resolved_head_dim
+    q, k_new, v_new = _project_qkv(params, x_step, cfg)  # (B,1,H,hd)
+    pos = torch.full((1,), cur_len, dtype=torch.int32, device=x_step.device)
+    cos, sin = layers.rope_angles(pos, hd, cfg.rope_theta)
+    q = layers.apply_rope(q, cos, sin)
+    k_new = layers.apply_rope(k_new, cos, sin)
+    out = _cached_attention_core(q, k_new, v_new, cache, cur_len)
+    return out.reshape(B, 1, cfg.num_heads * hd) @ params["wo"], cache
+
+
+def _cached_attention_core(q, k_new, v_new, cache, cur_len: int):
+    """Write the new token's k/v at ``cur_len`` (no write past the cache,
+    as the JAX package's clipped, masked write), then attend over
+    positions <= cur_len. Returns (B, H, hd) in q's dtype."""
+    if 0 <= cur_len < cache["k"].shape[1]:
+        cache["k"][:, cur_len] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, cur_len] = v_new[:, 0].to(cache["v"].dtype)
+    return ops.decode_attention(q[:, 0], cache["k"], cache["v"], cur_len)

@@ -1,0 +1,125 @@
+"""The port's prefill/decode attention on the CPU against the JAX package:
+its plain versions (``kernels/ref.py``, what the dispatchers run for CPU
+tensors) vs the JAX package's Pallas kernels in interpret mode and vs its
+own plain versions, on ``tests/test_kernels.py``'s shape grid. Float32 to
+2e-5 and bfloat16 to 2e-2 (``test_kernels.py``'s tolerances). The kernels
+themselves run only on the card (``tests/test_torch_cuda.py``); here their
+wrappers' input checks and their refusal of CPU tensors are tested."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ops as j_ops  # noqa: E402
+from repro.kernels import ref as j_ref  # noqa: E402
+from repro_torch.kernels import decode_attention as dec  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
+
+
+def _rand(shape, seed, dtype):
+    """The same values to both packages: float32 from numpy, cast."""
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    return torch.from_numpy(x).to(DTYPES[dtype][0]), \
+        jnp.asarray(x).astype(DTYPES[dtype][1])
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd,causal", [
+    (2, 128, 128, 4, 2, 64, True),
+    (1, 256, 256, 8, 8, 32, True),
+    (2, 64, 64, 4, 1, 128, False),
+])
+def test_flash_matches_jax(dtype, B, Sq, Sk, H, Hkv, hd, causal):
+    (tq, jq), (tk, jk), (tv, jv) = (_rand(s, i, dtype) for i, s in enumerate(
+        [(B, Sq, H, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd)], start=10))
+    out = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert out.dtype == tq.dtype and out.shape == (B, Sq, H, hd)
+    tol = DTYPES[dtype][2]
+    pallas = j_ops.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                   block_k=64)
+    for want in (pallas, j_ref.mha_ref(jq, jk, jv, causal=causal)):
+        np.testing.assert_allclose(_f32(out), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,S,H,Hkv,hd,cur_len", [
+    (2, 256, 4, 2, 64, 100), (1, 512, 8, 1, 128, 511), (3, 128, 4, 4, 32, 0),
+    (1, 64, 14, 2, 64, 200),
+])
+def test_decode_matches_jax(dtype, B, S, H, Hkv, hd, cur_len):
+    (tq, jq), (tk, jk), (tv, jv) = (_rand(s, i, dtype) for i, s in enumerate(
+        [(B, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)], start=20))
+    out = ops.decode_attention(tq, tk, tv, cur_len)
+    assert out.dtype == tq.dtype and out.shape == (B, H, hd)
+    tol = DTYPES[dtype][2]
+    pallas = j_ops.decode_attention(jq, jk, jv, cur_len, block_s=64)
+    for want in (pallas, j_ref.decode_attn_ref(jq, jk, jv, cur_len)):
+        np.testing.assert_allclose(_f32(out), _f32(want), rtol=tol, atol=tol)
+
+
+def test_decode_ignores_future_positions():
+    """Garbage beyond cur_len does not change the result."""
+    q, _ = _rand((1, 4, 32), 30, "float32")
+    k, _ = _rand((1, 128, 4, 32), 31, "float32")
+    v, _ = _rand((1, 128, 4, 32), 32, "float32")
+    cur = 63
+    out1 = ops.decode_attention(q, k, v, cur)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, cur + 1:] = 1e6
+    v2[:, cur + 1:] = -1e6
+    torch.testing.assert_close(ops.decode_attention(q, k2, v2, cur), out1,
+                               rtol=1e-6, atol=0)
+
+
+def test_wrappers_refuse_cpu_tensors_and_bad_inputs():
+    """A kernel wrapper never computes on the CPU, and rejects what its
+    kernel does not take before any launch."""
+    q = torch.zeros((1, 8, 4, 64))
+    kv = torch.zeros((1, 8, 2, 64))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dec.decode_attention(q[:, 0], kv, kv, 3)
+    bad = [(q[..., :48], kv[..., :48], kv[..., :48], "head dim"),
+           (q, torch.zeros((1, 8, 3, 64)), torch.zeros((1, 8, 3, 64)),
+            "multiple"),
+           (q.half(), kv.half(), kv.half(), "dtype"),
+           (q, kv.bfloat16(), kv, "dtype"),
+           (q.transpose(2, 3), kv, kv, "does not match"),
+           (q[:, :0], kv, kv, "non-empty")]
+    for a, b, c, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            fa.check_inputs(a, b, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.check_inputs(q, kv.as_strided(kv.shape, (1024, 128, 1, 2)), kv)
+    with pytest.raises(ValueError, match="non-negative int"):
+        dec.check_inputs(q[:, 0], kv, kv, -1)
+    with pytest.raises(ValueError, match="non-negative int"):
+        dec.check_inputs(q[:, 0], kv, kv, torch.tensor(3))
+    with pytest.raises(ValueError, match="at most 16"):
+        dec.check_inputs(torch.zeros((1, 34, 64)), kv, kv, 3)
+    dec.check_inputs(q[:, 0], kv, kv, np.int32(3))  # numpy ints are host ints
+
+
+def test_decode_split_plan():
+    """Splits fill about two blocks per SM, never leave a chunk empty, and
+    cover exactly the positions <= cur_len."""
+    assert dec.split_plan(40, 544, 132) == (7, 78)
+    assert dec.split_plan(40, 1, 132) == (1, 1)
+    assert dec.split_plan(1000, 544, 132) == (1, 544)
+    for bh in (1, 4, 40, 300):
+        for n in (1, 15, 16, 17, 100, 543, 4096):
+            n_split, chunk = dec.split_plan(bh, n, 132)
+            assert n_split * chunk >= n > (n_split - 1) * chunk
+            assert n_split <= -(-n // 16)

@@ -1,4 +1,5 @@
-"""Hopper kernels against their plain-PyTorch versions on the card.
+"""Hopper kernels against their plain-PyTorch versions on the card, and
+the serving path on the card against the CPU.
 
 Needs an NVIDIA GPU with nvcc; skipped elsewhere. Imports nothing of JAX,
 so it runs where only the port is installed:
@@ -93,3 +94,123 @@ def test_engine_on_card_matches_cpu(cuda):
     same = np.mean([np.array_equal(out["cpu"][r], out["cuda"][r])
                     for r in out["cpu"]])
     assert same >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode attention
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _randn(shape, seed, dtype, dev):
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    return torch.as_tensor(x, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd,causal", [
+    (2, 128, 128, 4, 2, 64, True), (1, 256, 256, 8, 8, 32, True),
+    (2, 64, 64, 4, 1, 128, False), (1, 1000, 1000, 8, 2, 128, True),
+    (2, 77, 77, 14, 2, 64, True), (1, 100, 300, 4, 4, 16, True),
+    (1, 300, 100, 2, 1, 256, True), (4, 512, 512, 40, 10, 128, True)])
+def test_flash_attention_matches_plain(cuda, dtype, B, Sq, Sk, H, Hkv, hd,
+                                       causal):
+    from repro_torch.kernels import flash_attention, ops, ref
+
+    q = _randn((B, Sq, H, hd), 1, dtype, cuda)
+    k = _randn((B, Sk, Hkv, hd), 2, dtype, cuda)
+    v = _randn((B, Sk, Hkv, hd), 3, dtype, cuda)
+    before = flash_attention.launches["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    again = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.mha_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["flash_attention"] == before + 2
+    assert out.dtype == dtype and out.shape == (B, Sq, H, hd)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, again)
+
+
+def test_flash_attention_reads_strided_views(cuda):
+    """q/k/v as views of a fused projection (strided heads) give the result
+    of contiguous copies."""
+    from repro_torch.kernels import ops
+
+    qkv = _randn((2, 96, 4 + 2 + 2, 64), 4, torch.bfloat16, cuda)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    out = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Hkv,hd,cur_len", [
+    (2, 256, 4, 2, 64, 100), (1, 512, 8, 1, 128, 511), (3, 128, 4, 4, 32, 0),
+    (4, 544, 40, 10, 128, 0), (4, 544, 40, 10, 128, 271),
+    (4, 544, 40, 10, 128, 543), (2, 300, 14, 2, 64, 299),
+    (1, 64, 1, 1, 256, 1000), (2, 40, 12, 1, 16, 17)])
+def test_decode_attention_matches_plain(cuda, dtype, B, S, H, Hkv, hd,
+                                        cur_len):
+    from repro_torch.kernels import decode_attention, ops, ref
+
+    q = _randn((B, H, hd), 5, dtype, cuda)
+    k = _randn((B, S, Hkv, hd), 6, dtype, cuda)
+    v = _randn((B, S, Hkv, hd), 7, dtype, cuda)
+    before = decode_attention.launches["decode_attention"]
+    out = ops.decode_attention(q, k, v, cur_len)
+    again = ops.decode_attention(q, k, v, cur_len)
+    want = ref.decode_attn_ref(q, k, v, cur_len)
+    torch.cuda.synchronize()
+    assert decode_attention.launches["decode_attention"] == before + 2
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_ignores_future_positions(cuda, dtype):
+    from repro_torch.kernels import ops
+
+    q = _randn((4, 40, 128), 8, dtype, cuda)
+    k = _randn((4, 544, 10, 128), 9, dtype, cuda)
+    v = _randn((4, 544, 10, 128), 10, dtype, cuda)
+    cur = 271
+    out1 = ops.decode_attention(q, k, v, cur)
+    k[:, cur + 1:] = 1e6
+    v[:, cur + 1:] = -1e6
+    out2 = ops.decode_attention(q, k, v, cur)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2)
+
+
+def test_real_server_on_card_matches_cpu(cuda):
+    """A 2-layer smoke server generates the CPU server's tokens from the
+    same weights (float32, TF32 off)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import VectorPoolConfig
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch.serve import RealServer
+
+    cfg = get_smoke_config("qwen1.5-32b")
+    pool = VectorPoolConfig(num_vectors=1500, dim=64, max_requests=16,
+                            top_m=16, task_batch=512, visited_slots=256,
+                            top_k=5)
+    cpu = RealServer(cfg, pool, rag_interval=4, device="cpu")
+    card = RealServer(cfg, pool, rag_interval=4, device=cuda,
+                      params=convert.lm_params_from_numpy(
+                          cfg, convert.lm_params_to_numpy(cpu.params), cuda))
+    prompts = np.random.default_rng(0).integers(
+        0, 500, size=(2, 16)).astype(np.int32)
+    f0 = flash_attention.launches["flash_attention"]
+    d0 = decode_attention.launches["decode_attention"]
+    toks, stats = card.generate(prompts, max_new=8)
+    assert flash_attention.launches["flash_attention"] - f0 == cfg.num_layers
+    assert decode_attention.launches["decode_attention"] - d0 == \
+        cfg.num_layers * (16 + 8)
+    want, want_stats = cpu.generate(prompts, max_new=8)
+    np.testing.assert_array_equal(toks, want)
+    assert stats["rag_probes"] == want_stats["rag_probes"]

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither jax nor the JAX package, its
 entry points default to the card and refuse to run on the CPU unless
-asked, and its config equals the JAX package's field for field."""
+asked, and its configs equal the JAX package's field for field."""
 import ast
 import dataclasses
 import os
@@ -14,6 +14,10 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+import repro.configs as jconfigs  # noqa: E402
+import repro.configs.base as jbase  # noqa: E402
+import repro_torch.configs as tconfigs  # noqa: E402
+import repro_torch.configs.base as tbase  # noqa: E402
 from repro.configs.base import VectorPoolConfig as JConfig  # noqa: E402
 from repro_torch.configs.base import VectorPoolConfig as TConfig  # noqa: E402
 
@@ -70,6 +74,9 @@ def test_cuda_requested_without_card_raises(monkeypatch):
     from repro_torch.vector.graph import build_knn_graph_exact, make_cagra_graph
     from repro_torch.vector.online import OnlineIndex
     from repro_torch.vector.ref import exact_knn
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import RealServer
+    from repro_torch.models import model_zoo
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = TConfig(num_vectors=64, dim=8, graph_degree=4, max_requests=2,
@@ -87,7 +94,13 @@ def test_cuda_requested_without_card_raises(monkeypatch):
              lambda: build_knn_graph_exact(db, 3),
              lambda: make_cagra_graph(db, 4),
              lambda: make_cagra_graph(db, 4, device="cuda"),
-             lambda: make_cagra_graph(db, 4, exact_threshold=8)]
+             lambda: make_cagra_graph(db, 4, exact_threshold=8),
+             lambda: model_zoo.init_params(get_smoke_config("gemma-7b")),
+             lambda: model_zoo.init_decode_caches(
+                 get_smoke_config("gemma-7b"), 1, 4),
+             lambda: convert.lm_params_from_numpy(
+                 get_smoke_config("gemma-7b"), {}),
+             lambda: RealServer(get_smoke_config("gemma-7b"), cfg)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -107,3 +120,35 @@ def test_vector_pool_config_equal_to_jax():
     assert list(jf) == list(tf)
     assert jf == tf
     assert TConfig.__dataclass_params__.frozen
+
+
+@pytest.mark.parametrize("name", ["MoEConfig", "MLAConfig", "ModelConfig"])
+def test_model_config_classes_equal_to_jax(name):
+    jf = [(f.name, f.type, f.default) for f in
+          dataclasses.fields(getattr(jbase, name))]
+    tf = [(f.name, f.type, f.default) for f in
+          dataclasses.fields(getattr(tbase, name))]
+    assert jf == tf
+    assert getattr(tbase, name).__dataclass_params__.frozen
+
+
+@pytest.mark.parametrize("arch", tconfigs.list_archs())
+def test_arch_configs_equal_to_jax(arch):
+    """The five dense archs' published and smoke configs equal the JAX
+    package's field for field, with the same derived numbers."""
+    for get in ("get_config", "get_smoke_config"):
+        j, t = getattr(jconfigs, get)(arch), getattr(tconfigs, get)(arch)
+        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+        assert (j.resolved_head_dim, j.q_heads_per_kv, j.param_count()) == \
+            (t.resolved_head_dim, t.q_heads_per_kv, t.param_count())
+
+
+def test_unported_archs_raise_naming_their_roadmap_item():
+    ported = set(tconfigs.list_archs())
+    assert ported < set(jconfigs.list_archs())
+    for arch in sorted(set(jconfigs.list_archs()) - ported):
+        for get in (tconfigs.get_config, tconfigs.get_smoke_config):
+            with pytest.raises(KeyError, match="ROADMAP Queue A item 12"):
+                get(arch)
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get_config("no-such-arch")

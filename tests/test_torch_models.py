@@ -1,0 +1,249 @@
+"""The port's dense models against the JAX package on the CPU: layers,
+attention, the transformer stack and the model zoo on the smoke configs of
+the five dense GQA archs, with the JAX parameters carried across by
+``convert.lm_params_from_numpy``. Float32 throughout; 1e-5 where the two
+compute the same sums (matmuls in another order on the two frameworks'
+CPU backends), looser where stated."""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_smoke_config as j_smoke  # noqa: E402
+from repro.models import layers as j_layers  # noqa: E402
+from repro.models import model_zoo as j_zoo  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import get_smoke_config, list_archs  # noqa: E402
+from repro_torch.models import layers, model_zoo, transformer  # noqa: E402
+
+ARCHS = list_archs()
+B, S = 2, 20
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x)).clone()
+
+
+@pytest.fixture(scope="module")
+def models():
+    """arch -> (port cfg, JAX params, port params on the CPU)."""
+    out = {}
+    for arch in ARCHS:
+        jp = j_zoo.init_params(j_smoke(arch), jax.random.PRNGKey(0))
+        cfg = get_smoke_config(arch)
+        out[arch] = (cfg, jp, convert.lm_params_from_numpy(
+            cfg, jax.device_get(jp), device="cpu"))
+    return out
+
+
+def _batch(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    batch = {"tokens": toks}
+    if cfg.frontend_tokens > 0:
+        batch["frontend"] = rng.normal(
+            size=(B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+def test_layers_match_jax():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 5, 3, 32)).astype(np.float32)
+    w = rng.normal(size=(32,)).astype(np.float32) * 0.1
+    np.testing.assert_allclose(
+        layers.rms_norm(_t(x), _t(w), 1e-6).numpy(),
+        _np(j_layers.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-6)), **TOL)
+    pos = np.arange(5, dtype=np.int32) + 7
+    cos, sin = layers.rope_angles(_t(pos), 32, 10000.0)
+    jcos, jsin = j_layers.rope_angles(jnp.asarray(pos), 32, 10000.0)
+    np.testing.assert_allclose(cos.numpy(), _np(jcos), **TOL)
+    np.testing.assert_allclose(sin.numpy(), _np(jsin), **TOL)
+    np.testing.assert_allclose(
+        layers.apply_rope(_t(x), cos, sin).numpy(),
+        _np(j_layers.apply_rope(jnp.asarray(x), jcos, jsin)), **TOL)
+    mlp = {k: rng.normal(size=s).astype(np.float32) * 0.2 for k, s in
+           (("wi_gate", (32, 48)), ("wi_up", (32, 48)), ("wo", (48, 32)))}
+    xm = rng.normal(size=(2, 5, 32)).astype(np.float32)
+    for kind in ("swiglu", "geglu"):
+        np.testing.assert_allclose(
+            layers.gated_mlp({k: _t(v) for k, v in mlp.items()}, _t(xm),
+                             kind).numpy(),
+            _np(j_layers.gated_mlp({k: jnp.asarray(v) for k, v in mlp.items()},
+                                   jnp.asarray(xm), kind)), **TOL)
+    assert layers.padded_vocab(151655) == j_layers.padded_vocab(151655)
+    logits = rng.normal(size=(2, 1, 2048)).astype(np.float32)
+    np.testing.assert_array_equal(
+        layers.mask_padded_logits(_t(logits), 512).numpy(),
+        _np(j_layers.mask_padded_logits(jnp.asarray(logits), 512)))
+
+
+def test_init_distributions_and_placement():
+    """Random init follows the JAX package's distributions: dense kernels
+    N(0, 1/d_in), embeddings N(0, 0.02²), norms and biases zero, in
+    cfg.dtype; the same seed gives the same weights."""
+    cfg = dataclasses.replace(get_smoke_config("qwen1.5-32b"), d_model=256,
+                              d_ff=512, num_layers=1)
+    p = model_zoo.init_params(cfg, seed=3, device="cpu")
+    again = model_zoo.init_params(cfg, seed=3, device="cpu")
+    assert torch.equal(p["blocks"][0]["mlp"]["wo"],
+                       again["blocks"][0]["mlp"]["wo"])
+    wq = p["blocks"][0]["attn"]["wq"]
+    assert wq.shape == (256, 256) and wq.dtype == torch.float32
+    assert abs(wq.std().item() - 256 ** -0.5) < 0.05 * 256 ** -0.5
+    assert abs(p["embed"].std().item() - 0.02) < 0.001
+    assert not p["blocks"][0]["ln1"].any() and not p["final_norm"].any()
+    assert not p["blocks"][0]["attn"]["bq"].any()
+    assert p["embed"].shape == (transformer.lm_head_vocab(cfg), 256)
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode against the JAX package
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_matches_jax(arch, models):
+    cfg, jp, tp = models[arch]
+    batch = _batch(cfg)
+    jl, jc = j_zoo.prefill_fn(j_smoke(arch), jp,
+                              {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, tc = model_zoo.prefill_fn(cfg, tp, {k: _t(v) for k, v in batch.items()})
+    assert tl.shape == jl.shape and tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), _np(jl), **TOL)
+    assert len(tc) == cfg.num_layers
+    for i, c in enumerate(tc):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(c[name].numpy(),
+                                       _np(jc["l0"][name][i]), **TOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_steps_match_jax(arch, models):
+    """Each decode step's logits and caches equal the JAX package's."""
+    cfg, jp, tp = models[arch]
+    jcfg = j_smoke(arch)
+    toks = _batch(cfg, seed=1)["tokens"]
+    steps = 8
+    decode = jax.jit(lambda p, t, c, n: j_zoo.decode_fn(jcfg, p, t, c, n))
+    jc = j_zoo.init_decode_caches(jcfg, B, steps + 2)
+    tc = model_zoo.init_decode_caches(cfg, B, steps + 2, device="cpu")
+    for i in range(steps):
+        jl, jc = decode(jp, jnp.asarray(toks[:, i:i + 1]), jc, jnp.int32(i))
+        tl, tc = model_zoo.decode_fn(cfg, tp, _t(toks[:, i:i + 1]), tc, i)
+        np.testing.assert_allclose(tl.numpy(), _np(jl), **TOL)
+    for i, c in enumerate(tc):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(c[name].numpy(),
+                                       _np(jc["l0"][name][i]), **TOL)
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS
+                                  if get_smoke_config(a).frontend_tokens == 0])
+def test_decode_matches_teacher_forced_prefill(arch, models):
+    """The port's own PD contract: the prompt fed token by token through
+    decode gives prefill's last logits, and the decode cache holds
+    prefill's k/v (the JAX package's
+    test_decode_matches_teacher_forced_forward; 1e-4 as sums run in
+    another order)."""
+    cfg, _, tp = models[arch]
+    toks = _t(_batch(cfg, seed=2)["tokens"])
+    ref, pc = model_zoo.prefill_fn(cfg, tp, {"tokens": toks})
+    caches = model_zoo.init_decode_caches(cfg, B, S + 4, device="cpu")
+    for i in range(S):
+        lg, caches = model_zoo.decode_fn(cfg, tp, toks[:, i:i + 1], caches, i)
+    torch.testing.assert_close(lg, ref, rtol=1e-4, atol=1e-4)
+    for c, p in zip(caches, pc):
+        torch.testing.assert_close(c["k"][:, :S], p["k"], rtol=1e-4, atol=1e-4)
+        assert not c["k"][:, S:].any()
+
+
+def test_decode_past_the_cache_writes_nothing(models):
+    """cur_len at or past S_max writes nothing (the JAX package's masked
+    write) and attends over the whole cache."""
+    cfg, _, tp = models["phi3-medium-14b"]
+    caches = model_zoo.init_decode_caches(cfg, B, 4, device="cpu")
+    tok = torch.ones((B, 1), dtype=torch.int32)
+    for i in range(4):
+        model_zoo.decode_fn(cfg, tp, tok, caches, i)
+    before = [c["k"].clone() for c in caches]
+    lg, _ = model_zoo.decode_fn(cfg, tp, tok, caches, 4)
+    assert all(torch.equal(b, c["k"]) for b, c in zip(before, caches))
+    assert torch.isfinite(lg).all()
+
+
+# ---------------------------------------------------------------------------
+# conversion, counts, unported families
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_tree_round_trip_and_count(arch, models):
+    """lm_params_from_numpy carries every leaf bit for bit, its inverse
+    gives the JAX layout back, and the analytic count equals the JAX
+    package's and the real number of weights (norms and biases aside)."""
+    cfg, jp, tp = models[arch]
+    flat_j = {jax.tree_util.keystr(k): np.asarray(v) for k, v in
+              jax.tree_util.tree_flatten_with_path(jax.device_get(jp))[0]}
+    back = convert.lm_params_to_numpy(tp)
+    flat_b = {jax.tree_util.keystr(k): v for k, v in
+              jax.tree_util.tree_flatten_with_path(back)[0]}
+    assert flat_j.keys() == flat_b.keys()
+    for k in flat_j:
+        np.testing.assert_array_equal(flat_b[k], flat_j[k], err_msg=k)
+    n = model_zoo.analytic_param_count(cfg)
+    assert n == j_zoo.analytic_param_count(j_smoke(arch))
+    assert cfg.param_count() == n == cfg.active_param_count()
+    counted = sum(v.numel() for k, v in
+                  [("embed", tp["embed"])] + [("lm_head", tp.get("lm_head"))]
+                  if v is not None)
+    counted += sum(w.numel() for blk in tp["blocks"]
+                   for part in ("attn", "mlp") for name, w in blk[part].items()
+                   if not name.startswith("b"))
+    assert counted == n
+
+
+def test_bfloat16_params_convert_exactly():
+    cfg = dataclasses.replace(get_smoke_config("gemma-7b"), dtype="bfloat16")
+    tp = model_zoo.init_params(cfg, seed=1, device="cpu")
+    again = convert.lm_params_from_numpy(cfg, convert.lm_params_to_numpy(tp),
+                                         device="cpu")
+    assert again["embed"].dtype == torch.bfloat16
+    assert torch.equal(again["embed"], tp["embed"])
+    assert torch.equal(again["blocks"][1]["mlp"]["wo"],
+                       tp["blocks"][1]["mlp"]["wo"])
+
+
+@pytest.mark.parametrize("change", [
+    dict(block_kind="mamba_attn", attn_every=2), dict(attn_kind="mla"),
+    dict(mlp_kind="moe"), dict(block_kind="xlstm"),
+    dict(block_kind="encdec", encoder_layers=1), dict(mtp_depth=1)])
+def test_unported_families_raise(change):
+    cfg = dataclasses.replace(get_smoke_config("phi3-medium-14b"), **change)
+    for call in (lambda: model_zoo.init_params(cfg, device="cpu"),
+                 lambda: model_zoo.init_decode_caches(cfg, 1, 4, device="cpu"),
+                 lambda: model_zoo.analytic_param_count(cfg)):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
+            call()
+
+
+def test_sequence_sharded_decode_raises(models):
+    cfg, _, tp = models["phi3-medium-14b"]
+    caches = model_zoo.init_decode_caches(cfg, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        model_zoo.decode_fn(cfg, tp, torch.zeros((1, 1), dtype=torch.int32),
+                            caches, 0, seq_axis="model")

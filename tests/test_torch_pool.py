@@ -171,3 +171,15 @@ def test_replicas_share_one_index(data):
                             device="cpu")
     ptrs = {r.engine.db.data_ptr() for r in pool.replicas}
     assert ptrs == {pool.index.db.data_ptr()}
+
+
+def test_pool_db_is_the_host_corpus_view(data):
+    """``pool.db`` is the host corpus, as the JAX pool keeps it (the serving
+    path draws its probe vectors from it): the array passed in, or a numpy
+    copy of a tensor."""
+    jp, tp = _pools(data)
+    assert tp.db is data[0] and jp.db is data[0]
+    from_tensor = tcore.VectorPool(TConfig(**CFG), torch.as_tensor(data[0]),
+                                   data[1], device="cpu")
+    assert isinstance(from_tensor.db, np.ndarray)
+    np.testing.assert_array_equal(from_tensor.db, jp.db)
