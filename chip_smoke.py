@@ -28,17 +28,26 @@ line is printed only when every phase passed):
     just before the path is driven and read just after)
   6 the attention kernels vs their plain versions on the card: prefill
     (B=4, S in {512, 2048}, 40 heads over 10 kv heads, hd=128, bf16 and
-    f32, causal; a ragged S=1000; internvl2's 14-over-2 heads at hd=64)
-    and decode (B=4, S_max=544, cur_len in {0, 271, 543}, garbage past
-    cur_len); per-launch device time, the plain version's time, the time
-    of torch's scaled_dot_product_attention on the same inputs (a
-    yardstick only: the port never calls it) and the bound
+    f32, causal; a ragged S=1000; internvl2's 14-over-2 heads at hd=64;
+    gemma-7b's 16-over-16 heads at hd=256), each with the B3 variant it
+    ran (flash_wgmma, flash_mma or flash_fp32), and decode (B=4,
+    S_max=544, cur_len in {0, 271, 543}, garbage and NaN past cur_len);
+    per-launch device time, the plain version's time, the time of torch's
+    scaled_dot_product_attention on the same inputs (a yardstick only: the
+    port never calls it) and the bound; decode timed with a cold L2 (10
+    rotating input sets, 111 MB) and a warm one (one set), each call
+    replayed from a CUDA graph of it (SDPA's and the plain version's
+    several kernels then run without the host's gaps between them)
   7 the serving path at full width: RealServer on phi3-medium-14b (40
     layers, d_model 5120, bf16, random weights from seed 0) with serve.py's
     pool, 4 requests of 512 prompt tokens, 32 new tokens, a RAG probe every
-    8 tokens; launches of every kernel on that path
+    8 tokens; launches of every kernel on that path (all 40 prefill
+    launches on flash_wgmma)
   8 the same entry point on the card and on the CPU: phi3's widths cut to
-    2 layers, float32, one set of weights; equal tokens, close logits
+    2 layers, float32, one set of weights; equal tokens, close logits; the
+    card's prefill on flash_fp32
+  9 RealServer at gemma-7b's widths (hd 256) cut to 2 layers, bf16: its
+    prefill on flash_mma, its decode on B4 at hd 256; finite logits
 
 The pool's clock is simulated and priced by the JAX package's V5E model;
 no latency from that clock is printed. Every time printed here is a host
@@ -66,8 +75,15 @@ KERNELS = {
                              "src/repro/kernels/distance.py:102"),
     "distance_onehot": ("src/repro_torch/csrc/distance.cu",
                         "src/repro/kernels/distance.py:42"),
+    # B3: the total over its variants, then each variant
     "flash_attention": ("src/repro_torch/csrc/attention.cu",
                         "src/repro/kernels/flash_attention.py:21"),
+    "flash_wgmma": ("src/repro_torch/csrc/attention.cu",
+                    "src/repro/kernels/flash_attention.py:21"),
+    "flash_mma": ("src/repro_torch/csrc/attention.cu",
+                  "src/repro/kernels/flash_attention.py:21"),
+    "flash_fp32": ("src/repro_torch/csrc/attention.cu",
+                   "src/repro/kernels/flash_attention.py:21"),
     "decode_attention": ("src/repro_torch/csrc/attention.cu",
                          "src/repro/kernels/decode_attention.py:22"),
 }
@@ -119,6 +135,27 @@ def device_ms(fn, arg_sets, n=240, hold_cycles=2_000_000_000):
     torch.cuda.synchronize()
     times = sorted(a.elapsed_time(b) for a, b in ev)
     return times[n // 2], ev[0][0].elapsed_time(ev[-1][1]) / n
+
+
+def graph_ms(fn, arg_sets, n, hold_cycles):
+    """``device_ms`` of replaying one CUDA graph of ``fn`` per arg set: the
+    device time of a call made of several kernels, without the host's gaps
+    between them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in arg_sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs = []
+    for args in arg_sets:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn(*args)
+        graphs.append((g,))
+    return device_ms(lambda g: g.replay(), graphs, n, hold_cycles)
 
 
 def host_ms(fn, arg_sets, n=240):
@@ -290,7 +327,11 @@ def phase_attention():
     """Phase 6: both attention kernels vs their plain versions on the card.
     Tolerance (atol = rtol): f32 1e-4, the kernels sum up to 2048 terms in
     another order than the plain version; bf16 2e-2, tests/test_kernels.py's
-    (the output rounds to bf16). Two runs must give the same bits."""
+    (the output rounds to bf16). Two runs must give the same bits. Each
+    prefill case records the B3 variant it ran; decode is timed warm (one
+    (q, k, v) set, its 11 MB cache held in the 50 MB L2 across calls) and
+    cold (calls rotate over 10 sets, 111 MB, as the 40 layers of a decode
+    step find their caches)."""
     import torch
     import torch.nn.functional as F
 
@@ -309,15 +350,21 @@ def phase_attention():
     flash_cases = [(4, S, 40, 10, 128, dt) for S in (512, 2048)
                    for dt in (torch.bfloat16, torch.float32)]
     flash_cases += [(4, 1000, 40, 10, 128, torch.bfloat16),
-                    (4, 512, 14, 2, 64, torch.bfloat16)]
+                    (4, 512, 14, 2, 64, torch.bfloat16),
+                    (4, 512, 16, 16, 256, torch.bfloat16)]  # gemma-7b's heads
     for i, (B, S, H, Hkv, hd, dt) in enumerate(flash_cases):
         q = randn((B, S, H, hd), 3 * i, dt)
         k = randn((B, S, Hkv, hd), 3 * i + 1, dt)
         v = randn((B, S, Hkv, hd), 3 * i + 2, dt)
+        before = dict(flash_attention.launches)
         out = flash_attention.flash_attention(q, k, v, causal=True)
         again = flash_attention.flash_attention(q, k, v, causal=True)
+        ran = [n for n in flash_attention.VARIANTS
+               if flash_attention.launches[n] > before[n]]
         want = ref.mha_ref(q, k, v, causal=True)
         torch.cuda.synchronize()
+        check(len(ran) == 1 and ran[0] == flash_attention.variant_of(q, k, v),
+              f"flash_attention {(B, S, H, Hkv, hd, dt)} ran {ran}")
         err, ok = close(out, want, tol[dt])
         check(ok, f"flash_attention {(B, S, H, Hkv, hd, dt)}: max |kernel - "
                   f"plain| {err} above {tol[dt]}")
@@ -343,15 +390,21 @@ def phase_attention():
             res["flash_attention"]["max_abs_err"], err)
         res["flash_attention"]["cases"].append(dict(
             shape=(B, S, H, Hkv, hd), dtype=str(dt).split(".")[-1],
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            library_err=lib_err, bound_ms=bound, bound_by=by))
+            variant=ran[0], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, library_err=lib_err, bound_ms=bound,
+            bound_by=by))
         del q, k, v, out, again, want
     # ---- B4: decode attention over the serving cache (S_max = 512 + 32)
     B, S, H, Hkv, hd = 4, 544, 40, 10, 128
+    hold = 1_000_000_000  # ~0.5 s: covers the host's enqueue of 200 replays
     for j, dt in enumerate((torch.bfloat16, torch.float32)):
         q = randn((B, H, hd), 100 + j, dt)
         k = randn((B, S, Hkv, hd), 110 + j, dt)
         v = randn((B, S, Hkv, hd), 120 + j, dt)
+        cold = [(q, k, v)] + [
+            (randn((B, H, hd), 130 + c, dt), randn((B, S, Hkv, hd), 140 + c, dt),
+             randn((B, S, Hkv, hd), 150 + c, dt)) for c in range(9)
+        ] if dt == torch.bfloat16 else []
         for cur in (0, 271, 543):
             out = decode_attention.decode_attention(q, k, v, cur)
             again = decode_attention.decode_attention(q, k, v, cur)
@@ -363,14 +416,17 @@ def phase_attention():
             check(torch.equal(out, again), "decode_attention: two runs differ")
             res["decode_attention"]["max_abs_err"] = max(
                 res["decode_attention"]["max_abs_err"], err)
-            if cur < S - 1:  # garbage past cur_len changes nothing
-                k2, v2 = k.clone(), v.clone()
-                k2[:, cur + 1:] = 1e6
-                v2[:, cur + 1:] = -1e6
-                out2 = decode_attention.decode_attention(q, k2, v2, cur)
-                torch.cuda.synchronize()
-                check(torch.equal(out, out2),
-                      f"decode_attention reads past cur_len={cur}")
+            if cur < S - 1:  # garbage, then NaN, past cur_len changes nothing
+                for fill in (1e6, float("nan")):
+                    k2, v2 = k.clone(), v.clone()
+                    k2[:, cur + 1:] = fill
+                    v2[:, cur + 1:] = -fill
+                    out2 = decode_attention.decode_attention(q, k2, v2, cur)
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, out2),
+                          f"decode_attention reads past cur_len={cur} "
+                          f"(fill {fill})")
+                del k2, v2
             if dt != torch.bfloat16:
                 continue
             mask = (torch.arange(S, device=dev) <= cur)[None, None, None, :]
@@ -381,21 +437,22 @@ def phase_attention():
                     attn_mask=mask, enable_gqa=True)[:, :, 0]
 
             lib_err = (sdpa(q, k, v).float() - want.float()).abs().max().item()
-            args = [(q, k, v, cur)]
-            ms = device_ms(lambda *a: decode_attention.decode_attention(*a),
-                           args, 200, hold_cycles=200_000_000)[0]
-            plain_ms = device_ms(lambda *a: ref.decode_attn_ref(*a), args,
-                                 200, hold_cycles=200_000_000)[0]
-            lib_ms = device_ms(lambda q, k, v, c: sdpa(q, k, v), args, 200,
-                               hold_cycles=200_000_000)[0]
+            fns = {"ms": lambda q, k, v, c=cur: decode_attention.decode_attention(
+                       q, k, v, c),
+                   "plain_ms": lambda q, k, v, c=cur: ref.decode_attn_ref(q, k, v, c),
+                   "library_ms": sdpa}
+            times = {}  # each call replayed from a CUDA graph of it
+            for key, fn in fns.items():
+                times["warm_" + key] = graph_ms(fn, cold[:1], 200, hold)[0]
+                times[key] = graph_ms(fn, cold, 200, hold)[0]  # cold: main figure
             n_valid = cur + 1
             nbytes = (2 * q.numel() + 2 * B * n_valid * Hkv * hd) * q.element_size()
             bound, by = attention_bound(nbytes, 4 * B * H * hd * n_valid, dt)
             res["decode_attention"]["cases"].append(dict(
                 shape=(B, S, H, Hkv, hd), cur_len=cur,
-                dtype=str(dt).split(".")[-1], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
-                bound_ms=bound, bound_by=by))
+                dtype=str(dt).split(".")[-1], max_abs_err=err, **times,
+                library_err=lib_err, bound_ms=bound, bound_by=by))
+        del q, k, v, cold
     return res
 
 
@@ -450,9 +507,11 @@ def phase_serve():
           "a generated token is out of the vocabulary")
     check(bool(finite["all"].item()) and finite["steps"] == 1 + S + NEW,
           f"non-finite logits (or {finite['steps']} model calls)")
-    check(launches["flash_attention"] == cfg.num_layers,
-          f"flash_attention launched {launches['flash_attention']} times, "
-          f"not once per layer ({cfg.num_layers})")
+    check(launches["flash_attention"] == cfg.num_layers
+          and launches["flash_wgmma"] == cfg.num_layers,
+          f"flash_attention launched {launches['flash_attention']} times "
+          f"({launches['flash_wgmma']} on flash_wgmma), not once per layer "
+          f"({cfg.num_layers}) on the wgmma variant")
     check(launches["decode_attention"] == cfg.num_layers * (S + NEW),
           f"decode_attention launched {launches['decode_attention']} times, "
           f"not {cfg.num_layers * (S + NEW)}")
@@ -489,9 +548,15 @@ def phase_card_vs_cpu():
     setup_s = time.perf_counter() - t0
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(2, 32)).astype(np.int32)
+    from repro_torch.kernels import flash_attention
+
+    flash_attention.reset_launches()
     t0 = time.perf_counter()
     toks_card, _ = card.generate(prompts, max_new=8)
     card_s = time.perf_counter() - t0
+    launches = dict(flash_attention.launches)
+    check(launches["flash_fp32"] == cfg.num_layers,
+          f"f32 prefill ran {launches}, not flash_fp32 once per layer")
     t0 = time.perf_counter()
     toks_cpu, _ = cpu.generate(prompts, max_new=8)
     cpu_s = time.perf_counter() - t0
@@ -509,7 +574,56 @@ def phase_card_vs_cpu():
     del card, cpu
     torch.cuda.empty_cache()
     return dict(toks=toks_card, logit_err=err, setup_s=setup_s,
-                card_s=card_s, cpu_s=cpu_s)
+                card_s=card_s, cpu_s=cpu_s, launches=launches)
+
+
+def phase_gemma():
+    """Phase 9: RealServer at gemma-7b's widths (hd 256, 16 heads over 16
+    kv heads, bf16) cut to 2 layers: the served config whose prefill takes
+    the mma.sync variant of B3 and whose decode takes B4 at hd 256."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import VectorPoolConfig
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch.serve import RealServer
+
+    cfg = dataclasses.replace(get_config("gemma-7b"), num_layers=2)
+    B, S, NEW = 4, 256, 8
+    server = RealServer(cfg, VectorPoolConfig(**SERVE_POOL), rag_interval=8,
+                        seed=0, device="cuda")
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    prefill = server._prefill
+
+    def watched(*a):
+        nonlocal finite
+        lg, caches = prefill(*a)
+        finite = finite & torch.isfinite(lg).all()
+        return lg, caches
+
+    server._prefill = watched
+    for mod in (flash_attention, decode_attention):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    toks, _ = server.generate(prompts, max_new=NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**flash_attention.launches, **decode_attention.launches}
+    check(toks.shape == (B, NEW) and bool(((toks >= 0)
+                                           & (toks < cfg.vocab_size)).all()),
+          "gemma-7b (2 layers): tokens out of shape or vocabulary")
+    check(bool(finite.item()), "gemma-7b (2 layers): non-finite prefill logits")
+    check(launches["flash_mma"] == cfg.num_layers
+          and launches["flash_attention"] == cfg.num_layers,
+          f"gemma-7b prefill ran {launches}, not flash_mma once per layer")
+    check(launches["decode_attention"] == cfg.num_layers * (S + NEW),
+          f"gemma-7b decode launched {launches['decode_attention']} times")
+    del server
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, launches=launches, wall=wall, toks=toks)
 
 
 def main():
@@ -640,13 +754,20 @@ def main():
     # ---- phase 6: attention kernels vs plain versions ----------------------
     t0 = time.perf_counter()
     ares = phase_attention()
-    for name, r in ares.items():
-        print(f"phase 6 {name}: max_abs_err={r['max_abs_err']:.3g} | " + "; ".join(
-            f"{c['shape']}{' cur_len=%d' % c['cur_len'] if 'cur_len' in c else ''}"
-            f" {c['dtype']} err={c['max_abs_err']:.3g} ms={c['ms']:.5f} "
-            f"plain_ms={c['plain_ms']:.5f} library_ms(sdpa)={c['library_ms']:.5f}"
-            f" (vs plain {c['library_err']:.3g}) bound_ms={c['bound_ms']:.6f} "
-            f"({c['bound_by']})" for c in r["cases"]), flush=True)
+    fr = ares["flash_attention"]
+    print(f"phase 6 flash_attention: max_abs_err={fr['max_abs_err']:.3g} | " + "; ".join(
+        f"{c['shape']} {c['dtype']} on {c['variant']} err={c['max_abs_err']:.3g} "
+        f"ms={c['ms']:.5f} plain_ms={c['plain_ms']:.5f} library_ms(sdpa)="
+        f"{c['library_ms']:.5f} (vs plain {c['library_err']:.3g}) bound_ms="
+        f"{c['bound_ms']:.6f} ({c['bound_by']})" for c in fr["cases"]), flush=True)
+    dr = ares["decode_attention"]
+    print(f"phase 6 decode_attention: max_abs_err={dr['max_abs_err']:.3g} | " + "; ".join(
+        f"{c['shape']} cur_len={c['cur_len']} {c['dtype']} err={c['max_abs_err']:.3g}"
+        f" cold L2: ms={c['ms']:.5f} plain_ms={c['plain_ms']:.5f} library_ms(sdpa)="
+        f"{c['library_ms']:.5f}; warm L2: ms={c['warm_ms']:.5f} plain_ms="
+        f"{c['warm_plain_ms']:.5f} library_ms(sdpa)={c['warm_library_ms']:.5f}"
+        f" (sdpa vs plain {c['library_err']:.3g}) bound_ms={c['bound_ms']:.6f} "
+        f"({c['bound_by']})" for c in dr["cases"]), flush=True)
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 7: the serving path at full width ---------------------------
@@ -673,23 +794,49 @@ def main():
           f" s, on the CPU {cmp_['cpu_s']:.1f} s | "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    launches.update(flash_attention=srv["launches"]["flash_attention"],
-                    decode_attention=srv["launches"]["decode_attention"])
-    # B3/B4 numbers at the serving path's shapes: prefill B=4, S=512, bf16;
-    # decode at the longest step (cur_len = 543), bf16
-    main_case = {"flash_attention": ares["flash_attention"]["cases"][0],
-                 "decode_attention": ares["decode_attention"]["cases"][-1]}
+    # ---- phase 9: gemma-7b's widths, the mma.sync variant's served path ------
+    t0 = time.perf_counter()
+    gem = phase_gemma()
+    print(f"phase 9 serve {gem['cfg'].name} widths, 2 layers, bf16: 4 requests "
+          f"x 256 prompt + 8 new tokens in {gem['wall']:.2f} s, launches "
+          f"{gem['launches']} | first request's tokens {gem['toks'][0].tolist()}"
+          f" | {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # launches on each kernel's path: B1/B2 on the pool (phases 3, 4); B3's
+    # total, its wgmma variant and B4 on phi3's serving path (phase 7); the
+    # f32 variant on phase 8's float32 server; the mma.sync variant on
+    # gemma-7b's (phase 9)
+    launches.update({n: srv["launches"][n] for n in
+                     ("flash_attention", "flash_wgmma", "decode_attention")})
+    launches.update(flash_fp32=cmp_["launches"]["flash_fp32"],
+                    flash_mma=gem["launches"]["flash_mma"])
+    # each variant's numbers at its phase-6 case: the serving shape (prefill
+    # B=4, S=512, bf16) for the total and wgmma, the same shape in f32,
+    # gemma-7b's heads (hd 256) for mma.sync; decode at the longest step
+    # (cur_len = 543), bf16, cold L2 as the main figure
+    cases = fr["cases"]
+    by_variant = {c["variant"]: c for c in reversed(cases)}
+    var_err = {v: max(c["max_abs_err"] for c in cases if c["variant"] == v)
+               for v in by_variant}
+    main_case = {"flash_attention": cases[0], "flash_wgmma": cases[0],
+                 "flash_fp32": by_variant["flash_fp32"],
+                 "flash_mma": by_variant["flash_mma"],
+                 "decode_attention": dr["cases"][-1]}
     line = []
     for name, (source, replaces) in KERNELS.items():
         r = kres.get(name) or main_case[name]
-        line.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": (kres[name] if name in kres else ares[name])[
-                "max_abs_err"],
+            "max_abs_err": kres[name]["max_abs_err"] if name in kres
+            else var_err[name] if name in var_err
+            else ares[name]["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r.get("library_ms")})
+            "library_ms": r.get("library_ms")}
+        if "warm_ms" in r:
+            entry["warm_ms"] = r["warm_ms"]
+        line.append(entry)
     print(f"all phases took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": line}))

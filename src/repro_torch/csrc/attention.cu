@@ -6,16 +6,20 @@
 //     q (B, Sq, H, hd), k/v (B, Sk, Hkv, hd), f32 or bf16; query head h
 //     reads kv head h / (H / Hkv) (GQA); scale 1/sqrt(hd); online softmax
 //     with m, l and the output accumulator in f32; causal mask qpos >= kpos
-//     over row indices; output (B, Sq, H, hd) in q's type. One launch:
-//     bf16 on the tensor cores, f32 on the fp32 cores.
+//     over row indices; output (B, Sq, H, hd) in q's type. One launch of
+//     one of three variants, chosen by flash_variant (the same rule as
+//     kernels/flash_attention.py::flash_variant):
+//       flash_wgmma_kernel  bf16, hd 64 or 128, 16-byte aligned bases and
+//                           strides (every contiguous or fused projection)
+//       flash_mma_kernel    any other bf16 (hd 16, 32, 256; odd strides)
+//       flash_kernel        f32, on the fp32 cores
 //
 //   decode_attention — replaces the TPU kernel
 //     src/repro/kernels/decode_attention.py::_decode_kernel
 //     (decode_attention). One new token per sequence: q (B, H, hd) attends
 //     over the cache k/v (B, S, Hkv, hd) at positions <= cur_len (one
 //     scalar for the whole batch, passed by value from the host). Output
-//     (B, H, hd) in q's type. Two launches: a split-KV pass writing f32
-//     partial (m, l, acc) triples, and a combine pass.
+//     (B, H, hd) in q's type. One launch: decode_split_kernel.
 //
 // Bound on this card, and what the design does about it.
 //
@@ -24,60 +28,84 @@
 // At the serving shape (B = 4, S = 512, H = 40, Hkv = 10, hd = 128, bf16)
 // that is 1.08e10 flops against 52 MB: ~11 us at the bf16 tensor-core
 // peak and ~16 us at 3.35 TB/s, so the bound is bytes there and flops from
-// S ~ 1k up. Two kernels share one design, chosen by the input type:
-//   * bf16 (the serving path) runs on the tensor cores: mma.sync m16n8k16
-//     with f32 accumulators, fragments loaded by ldmatrix from shared
-//     memory (rows padded by 16 bytes so the 8 rows of each ldmatrix fall
-//     in 8 bank groups); a warp owns 16 q rows; S = Q K^T stays in
-//     registers, its accumulator tiles are rounded to bf16 and used as the
-//     A fragments of P V (no round trip through shared memory); the online
-//     softmax works on the accumulators with two quad shuffles per row.
-//     Loads are plain 16-byte loads with no copy/compute overlap inside a
-//     block (cp.async/TMA pipelining and wgmma are later work), so it sits
-//     above both bounds;
-//   * f32 runs on the fp32 cores (67 TFLOP/s peak): TF32 products would
-//     not hold float32's precision. S = Q K^T is register-tiled (BQ/8 rows
-//     x BK/16 columns a thread), P V reads P as float4 over k, K is stored
-//     transposed with rows padded by one float.
-// Common to both:
-//   * one block of 128 threads per (q tile, head, batch row); a loop over
-//     kv tiles inside the block takes the TPU's sequential grid axis, and
-//     under the causal mask it stops at the tile that holds the diagonal;
-//   * q, k, v are read in place from the (B, S, H, hd) layout through
-//     their strides (no transposed copies), each element once per q tile
-//     (the bf16 kernel falls back to element loads when a pointer or a
-//     stride is not 16-byte aligned);
-//   * any Sq, Sk: the ragged tiles are zero-filled and masked (the TPU
-//     version halved its block until it divided S);
-//   * q tiles are issued longest-first, so under the causal mask the last
-//     wave holds the short tiles.
+// S ~ 1k up. flash_wgmma_kernel is built for the tensor cores:
+//   * wgmma: S = Q K^T as m64n128k16 with both operands in shared memory;
+//     P, rounded to bf16 in registers, is the register A operand of
+//     O += P V (V through the transpose bit); f32 accumulators. A block is
+//     two consumer warpgroups of 64 q rows each (BQ = 128) and one
+//     producer warp;
+//   * TMA: Q and the K/V tiles (BK = 128 rows) come in by
+//     cp.async.bulk.tensor through 4-D tensor maps (hd, heads, rows, batch)
+//     built on the host from the strides, 128-byte swizzled (an hd-128 row
+//     is two 64-column boxes), into two Q buffers and a ring of 2 (hd 128)
+//     or 3 (hd 64) K/V stages with full/empty mbarriers; rows past Sq or
+//     Sk are zero-filled by TMA and masked. cuTensorMapEncodeTiled is
+//     fetched through cudaGetDriverEntryPoint, so nothing links libcuda;
+//   * persistent: one block an SM walks the (q tile, head, batch) items,
+//     q tiles longest-first and the g heads of a kv head side by side (they
+//     share its K/V tiles in L2), each round of items in the other
+//     direction so long and short tiles even out; the producer loads the
+//     next item's Q and K/V while the consumers finish the current one;
+//   * ping-pong: named barriers alternate the two warpgroups' S products,
+//     so one's softmax runs under the other's products;
+//   * softmax: exp2 with scale * log2(e) folded into one FMA; the mask only
+//     on tiles that cross the diagonal or the end of k; row sums kept per
+//     thread and reduced once at the end.
+// What still holds it back (PERF.md): the softmax of a warpgroup does not
+// overlap its own products (an overlapped version, with setmaxnreg, ran
+// slower with two K/V stages), the diagonal tile is computed whole for
+// the warpgroup that needs half of it, and each K/V tile is read from L2
+// by each of the g heads' blocks (no cluster multicast).
+// flash_mma_kernel: mma.sync m16n8k16 with ldmatrix fragments from
+// padded rows, 16 q rows a warp, no copy/compute overlap. flash_kernel (f32)
+// runs on the fp32 cores (TF32 would not hold float32's precision):
+// register-tiled S = Q K^T, P V reading P as float4.
+// Common to all three: any Sq, Sk (the TPU version halved its block until
+// it divided S); q, k, v read in place through their strides; no atomics,
+// so repeated runs give the same bits.
 //
 // decode_attention reads the cache rows at positions <= cur_len once:
 // B * (cur_len + 1) * Hkv * hd * 2 elements (11.1 MB at B = 4, cur_len =
 // 543, Hkv = 10, hd = 128, bf16: 3.3 us) for ~4 * B * H * hd * (cur_len+1)
-// flops: about g/2 flops per byte, so it is bound by bytes. What it does:
+// flops: about g/2 flops per byte, so it is bound by bytes, and at these
+// sizes by latency. What it does:
 //   * the g query heads that share a kv head are computed together in one
 //     block, so each cache row is read once (g up to 16);
-//   * split-KV: B * Hkv blocks alone (40 at the serving shape) would leave
-//     most of the 132 SMs idle, so positions [0, cur_len] are cut into
-//     chunks, one block each, about two blocks per SM in all; each group of
-//     lanes in a warp (hd / EPL lanes, EPL elements a lane, coalesced) takes
-//     one position at a time and keeps its own online-softmax state, which
-//     it writes out as a partial; a second launch combines the partials of
-//     each (b, h) in a fixed order;
-//   * positions past cur_len are never read;
+//   * split-KV: positions [0, cur_len] are cut into at most 8 chunks of
+//     whole 32-position tiles, about one tile a warp; a block of 4 warps
+//     (fewer when a tile's K and V pass 48 KB) takes one chunk of one
+//     (b, kv head);
+//   * each warp streams its tiles' K and V by TMA (4-D maps whose row
+//     extent ends at cur_len + 1, so TMA zero-fills rather than reading
+//     past it) and works alone: scores for all g heads at 32 positions (a
+//     lane each, from 16-byte swizzled shared-memory reads), one max and
+//     one sum per head and tile by shuffles, P V into its own columns; no
+//     block-wide barrier until the end;
+//   * the chunks of one (b, kv head) are one thread-block cluster: every
+//     warp leaves its (m, l, acc) partial in shared memory, and the
+//     cluster merges them over distributed shared memory in (split, warp)
+//     order, in the same launch;
 //   * no atomics anywhere: repeated runs give the same bits.
+// What still holds it back: latency, not bytes. One block with one tile
+// takes ~11 us by CUDA events where a one-element add takes ~5 us; the
+// scores and P V run on the fp32 cores, one warp a tile.
 //
-// Both kernels launch on the caller's stream, allocate nothing, and return
-// cudaGetLastError() after their launches.
+// Every kernel launches on the caller's stream, allocates nothing, and its
+// C entry returns cudaGetLastError() (or the launch's error) after its
+// launch.
 
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums; nothing of libcuda is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr float kNegInf = -1e30f;  // the plain versions' mask value
 constexpr int kThreads = 128;
@@ -94,6 +122,71 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 constexpr int align4(int n) { return (n + 3) & ~3; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers and TMA (both kernels' copies) ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also tells the barrier how many bytes TMA will bring
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; the transfer's bytes complete on `bar`; out-of-range rows are
+// zero-filled and never read
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// first 1024-byte aligned address of dynamic shared memory (the 128-byte
+// swizzle repeats every 1024 bytes; TMA and wgmma assume that alignment)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
 
 // ---------------------------------------------------------------------------
 // flash_attention (prefill)
@@ -286,10 +379,6 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
 }
 
 // ---- bf16 on the tensor cores (mma.sync m16n8k16, f32 accumulators) ----
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // four 8x8 b16 matrices; lane l gives the row address of matrix l / 8
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
@@ -548,22 +637,456 @@ int launch_flash_mma(const void* q, const void* k, const void* v, void* o, int B
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_flash(int hd, const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int Hkv, int64_t sqb,
-                   int64_t sqs, int64_t sqh, int64_t skb, int64_t sks,
-                   int64_t skh, int64_t svb, int64_t svs, int64_t svh,
-                   int causal, cudaStream_t stream) {
-  // bf16 runs on the tensor cores; f32 on the fp32 cores (TF32 products
-  // would not hold float32's precision)
-#define REPRO_FLASH(HD_)                                                         \
-  case HD_:                                                                      \
-    if constexpr (std::is_same<T, __nv_bfloat16>::value)                         \
-      return launch_flash_mma<HD_>(q, k, v, o, B, Sq, Sk, H, Hkv, sqb, sqs, sqh, \
-                                   skb, sks, skh, svb, svs, svh, causal, stream); \
-    else                                                                         \
-      return launch_flash<HD_>(q, k, v, o, B, Sq, Sk, H, Hkv, sqb, sqs, sqh,     \
-                               skb, sks, skh, svb, svs, svh, causal, stream);
+// ---- bf16 on wgmma, fed by TMA (hd 64 and 128) ----
+
+// cuTensorMapEncodeTiled lives in libcuda: it is fetched at run time
+// through the runtime's cudaGetDriverEntryPoint, so the build links no
+// libcuda and _build.NVCC_FLAGS stay as they are.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                   void*, const cuuint64_t*, const cuuint64_t*,
+                                   const cuuint32_t*, const cuuint32_t*,
+                                   CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A tensor map over a strided (batch, rows, heads, hd) operand, seen by TMA
+// as 4-D (hd, heads, rows, batch), innermost first; strides in elements.
+// `rows` is the extent TMA may read: boxes past it are zero-filled. A box
+// is box_inner elements of one row of one head, box_rows rows deep.
+// Returns a cudaError_t value.
+int make_map(CUtensorMap* map, const void* base, int elt, int hd, int heads,
+             int rows, int batch, int64_t s_head, int64_t s_row, int64_t s_batch,
+             int box_inner, int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_head * elt),
+                                 static_cast<cuuint64_t>(s_row * elt),
+                                 static_cast<cuuint64_t>(s_batch * elt)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_inner), 1u,
+                             static_cast<cuuint32_t>(box_rows), 1u};
+  const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
+  const CUresult r = enc(
+      map, elt == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+      const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets in 16-byte units, layout B128
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo & 0x3FFFu) << 16) |
+         (static_cast<uint64_t>(sbo & 0x3FFFu) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pins registers that an asynchronous wgmma reads or writes: the compiler
+// may not move their uses across this point, nor reuse them before it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 128, f32) += A (64 x 16, smem desc) * B (128 x 16, smem desc);
+// scale_d = 0 overwrites d. Both operands K-major, 128-byte swizzled.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, smem
+// desc, N-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, smem
+// desc, N-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O += P V at N = hd columns
+template <int N> struct Wgmma;
+template <> struct Wgmma<64> {
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    wgmma_rs_n64(d, a, b);
+  }
+};
+template <> struct Wgmma<128> {
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    wgmma_rs_n128(d, a, b);
+  }
+};
+
+template <int HD>
+struct WgTile {
+  static constexpr int BQ = 128;  // q rows a work item: 64 a consumer warpgroup
+  static constexpr int BK = 128;  // kv rows a tile
+  static constexpr int NBOX = HD / 64;  // 128-byte (64-column) boxes a row
+  static constexpr int NST = HD > 64 ? 2 : 3;  // K/V ring stages
+  static constexpr int BOX_Q = BQ * 128, BOX_K = BK * 128;  // bytes a box
+  static constexpr int Q_BYTES = NBOX * BOX_Q;  // one of the two Q buffers
+  static constexpr int KV_BYTES = NBOX * BOX_K;  // K or V, one stage
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + NST * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + NST * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + (4 + 2 * NST) * 8 + 1024;  // + alignment
+  static constexpr int CONSUMERS = 256;  // two warpgroups
+  static constexpr int THREADS = CONSUMERS + 32;  // + one producer warp
+  static_assert(HD == 64 || HD == 128, "wgmma flash takes hd 64 and 128");
+  static_assert(BYTES <= 232448, "shared memory");
+};
+
+// work item i of n_items -> (q tile, head, batch row): q tiles longest-first
+// under the causal mask, and the heads fastest, so the g query heads of one
+// kv head run side by side and share its K/V tiles in L2
+struct WgItem {
+  int q0, h, b, n_tiles;
+};
+
+template <int BQ, int BK>
+__device__ __forceinline__ WgItem wg_item(int i, int n_qt, int H, int B, int Sk,
+                                          int causal) {
+  const int rank = i / (H * B), rem = i % (H * B);
+  const int qt = causal ? n_qt - 1 - rank : rank;
+  WgItem w;
+  w.q0 = qt * BQ;
+  w.h = rem % H;
+  w.b = rem / H;
+  const int kv_end = causal ? min(Sk, w.q0 + BQ) : Sk;
+  w.n_tiles = (kv_end + BK - 1) / BK;
+  return w;
+}
+
+// the it-th work item of this block: rounds of gridDim.x items, walked
+// forward and back in turn, so the long and the short q tiles even out
+__device__ __forceinline__ int wg_item_index(int it) {
+  const int G = gridDim.x;
+  return it * G + ((it & 1) ? G - 1 - static_cast<int>(blockIdx.x)
+                            : static_cast<int>(blockIdx.x));
+}
+
+// named barriers (id 0 is __syncthreads): sync waits for `count` threads,
+// arrive counts this thread and goes on
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Persistent: each block walks its work items (wg_item_index); the
+// producer warp runs ahead into the next item's Q (two buffers) and K/V
+// tiles (the ring) while the consumers finish the current one.
+template <int HD>
+__global__ void __launch_bounds__(WgTile<HD>::THREADS, 1) flash_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int B,
+    int Sq, int Sk, int H, int group, int causal, float scale_log2) {
+  using F = WgTile<HD>;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* base = align1024(smem_wg);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + F::BAR_OFF);  // [2]
+  uint64_t* q_empty = q_full + 2;    // [2] both warpgroups are done with a Q
+  uint64_t* full = q_empty + 2;      // a stage's K and V have landed
+  uint64_t* empty = full + F::NST;   // both consumer warpgroups are done with it
+
+  const int n_qt = (Sq + F::BQ - 1) / F::BQ;
+  const int n_items = n_qt * H * B;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int x = 0; x < 2; ++x) {
+      mbar_init(q_full + x, 1);
+      mbar_init(q_empty + x, F::CONSUMERS);
+    }
+    for (int s = 0; s < F::NST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, F::CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= F::CONSUMERS) {
+    // producer: one thread keeps the Q buffers and the ring full
+    if (tid == F::CONSUMERS) {
+      int n = 0;  // K/V tiles issued so far, over all items
+      for (int it = 0, i; (i = wg_item_index(it)) < n_items; ++it) {
+        const WgItem w = wg_item<F::BQ, F::BK>(i, n_qt, H, B, Sk, causal);
+        const int hk = w.h / group, qb = it % 2;
+        if (it >= 2) mbar_wait(q_empty + qb, ((it / 2) + 1) & 1);
+        mbar_expect_tx(q_full + qb, F::Q_BYTES);
+        for (int x = 0; x < F::NBOX; ++x)
+          tma_load_4d(base + qb * F::Q_BYTES + x * F::BOX_Q, &qmap, q_full + qb, 64 * x,
+                      w.h, w.q0, w.b);
+        for (int j = 0; j < w.n_tiles; ++j, ++n) {
+          const int s = n % F::NST;
+          if (n >= F::NST) mbar_wait(empty + s, ((n / F::NST) + 1) & 1);
+          mbar_expect_tx(full + s, 2 * F::KV_BYTES);
+          unsigned char* ks = base + F::K_OFF + s * F::KV_BYTES;
+          unsigned char* vs = base + F::V_OFF + s * F::KV_BYTES;
+          for (int x = 0; x < F::NBOX; ++x) {
+            tma_load_4d(ks + x * F::BOX_K, &kmap, full + s, 64 * x, hk, j * F::BK, w.b);
+            tma_load_4d(vs + x * F::BOX_K, &vmap, full + s, 64 * x, hk, j * F::BK, w.b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64); this
+  // thread's accumulator rows are row0 (elements 4t, 4t+1) and row0 + 8
+  // (4t+2, 4t+3), columns 8t + 2 (lane % 4) + {0, 1} of n-tile t
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int col_l = 2 * (lane % 4);
+  int n = 0;  // K/V tiles consumed so far, over all items
+  // ping-pong: named barrier 1 + wg opens warpgroup wg's S GEMM; each
+  // warpgroup opens the other's after issuing its own, so one warpgroup's
+  // softmax runs under the other's products. Warpgroup 0 goes first.
+  if (wg == 1) named_arrive(1, F::CONSUMERS);
+  for (int it = 0, i; (i = wg_item_index(it)) < n_items; ++it) {
+    const WgItem w = wg_item<F::BQ, F::BK>(i, n_qt, H, B, Sk, causal);
+    const int qb = it % 2;
+    const int row0 = w.q0 + 64 * wg + 16 * warp + lane / 4;
+    const uint32_t q_smem = smem_addr(base + qb * F::Q_BYTES) + wg * 64 * 128;
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) acc[x] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max, log2 domain (scaled)
+    float l[2] = {0.f, 0.f};              // this thread's part of the row sums
+
+    mbar_wait(q_full + qb, (it / 2) & 1);
+    for (int j = 0; j < w.n_tiles; ++j, ++n) {
+      const int s = n % F::NST, k0 = j * F::BK;
+      mbar_wait(full + s, (n / F::NST) & 1);
+      const uint32_t k_smem = smem_addr(base + F::K_OFF + s * F::KV_BYTES);
+      const uint32_t v_smem = smem_addr(base + F::V_OFF + s * F::KV_BYTES);
+
+      // S = Q K^T: both K-major; a 16-wide k step is 32 bytes into a
+      // 128-byte swizzled row, and every 4 steps the next 64-column box
+      float sc[F::BK / 2];
+      named_sync(1 + wg, F::CONSUMERS);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t koff = (kk % 4) * 32u;
+        wgmma_ss_n128(sc, desc_sw128(q_smem + (kk / 4) * F::BOX_Q + koff, 1, 64),
+                      desc_sw128(k_smem + (kk / 4) * F::BOX_K + koff, 1, 64), kk > 0);
+      }
+      wgmma_commit();
+      named_arrive(2 - wg, F::CONSUMERS);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (j == w.n_tiles - 1) mbar_arrive(q_empty + qb);  // Q is read for the last time
+
+      // the mask, only on tiles that cross the diagonal or the end of k
+      if (k0 + F::BK > Sk || (causal && k0 + F::BK - 1 > w.q0 + 64 * wg)) {
+#pragma unroll
+        for (int x = 0; x < F::BK / 2; ++x) {
+          const int row = row0 + 8 * ((x / 2) % 2);
+          const int col = k0 + 8 * (x / 4) + col_l + (x % 2);
+          if (col >= Sk || (causal && row < col)) sc[x] = -INFINITY;
+        }
+      }
+
+      // online softmax in registers: p = 2^(s * scale * log2 e - m); every
+      // row has a live key in the first tile (key 0), so m is finite from
+      // there on
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int x = 0; x < F::BK / 2; ++x) mx[(x / 2) % 2] = fmaxf(mx[(x / 2) % 2], sc[x]);
+      float alpha[2], neg_m[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        alpha[r] = exp2f(m[r] - m_use);
+        neg_m[r] = -m_use;
+        m[r] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int x = 0; x < F::BK / 2; ++x) {
+        const int r = (x / 2) % 2;
+        sc[x] = exp2f(fmaf(sc[x], scale_log2, neg_m[r]));
+        sum[r] += sc[x];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], sum[r]);
+#pragma unroll
+      for (int x = 0; x < HD / 2; ++x) acc[x] *= alpha[(x / 2) % 2];
+
+      // O += P V: P, rounded to bf16, is the register A operand; V is
+      // N-major in shared memory (transpose bit), 16 kv rows = 2048 bytes
+      // a step
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < F::BK / 16; ++kk) {
+        const uint32_t a[4] = {pack_bf16(sc[8 * kk], sc[8 * kk + 1]),
+                               pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
+                               pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
+                               pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
+        Wgmma<HD>::rs(acc, a, desc_sw128(v_smem + kk * 16 * 128, F::BOX_K / 16, 64));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty + s);
+    }
+
+    // epilogue, while the producer already fills the next item's buffers
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= Sq) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      uint32_t* orow = reinterpret_cast<uint32_t*>(
+          o + ((static_cast<int64_t>(w.b) * Sq + row) * H + w.h) * HD);
+#pragma unroll
+      for (int t = 0; t < HD / 8; ++t)
+        orow[(8 * t + col_l) / 2] =
+            pack_bf16(acc[4 * t + 2 * r] * inv, acc[4 * t + 2 * r + 1] * inv);
+    }
+  }
+  if (wg == 0) named_sync(1, F::CONSUMERS);  // warpgroup 1's last opening
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <int HD>
+int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                       int Sq, int Sk, int H, int Hkv, int64_t sqb, int64_t sqs,
+                       int64_t sqh, int64_t skb, int64_t sks, int64_t skh,
+                       int64_t svb, int64_t svs, int64_t svh, int causal,
+                       cudaStream_t stream) {
+  using F = WgTile<HD>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  CUtensorMap qm, km, vm;
+  int err = make_map(&qm, q, 2, HD, H, Sq, B, sqh, sqs, sqb, 64, F::BQ,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = make_map(&km, k, 2, HD, Hkv, Sk, B, skh, sks, skb, 64, F::BK,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = make_map(&vm, v, 2, HD, Hkv, Sk, B, svh, svs, svb, 64, F::BK,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  const int64_t n_items = static_cast<int64_t>((Sq + F::BQ - 1) / F::BQ) * H * B;
+  const int sms = sm_count();
+  if (sms <= 0 || n_items > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(n_items < sms ? n_items : sms);  // one block an SM
+  flash_wgmma_kernel<HD><<<grid, F::THREADS, F::BYTES, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), B, Sq, Sk, H, H / Hkv, causal,
+      1.4426950408889634f / sqrtf(static_cast<float>(HD)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dispatch rule between the hand-written variants (kernels/
+// flash_attention.py::flash_variant is the same rule in Python, tested on
+// the CPU): f32 -> flash_kernel on the fp32 cores; bf16 at hd 64 or 128
+// with 16-byte aligned bases and strides (TMA's requirement) ->
+// flash_wgmma_kernel; any other bf16 -> flash_mma_kernel.
+enum FlashVariant { kFlashFp32 = 0, kFlashMma = 1, kFlashWgmma = 2 };
+
+int flash_variant(int dtype, int hd, const void* q, const void* k, const void* v,
+                  const int64_t (&strides)[9]) {
+  if (dtype == 0) return kFlashFp32;
+  bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                   reinterpret_cast<uintptr_t>(v)) % 16) == 0;
+  for (int64_t s : strides) aligned = aligned && s > 0 && s % 8 == 0;
+  return (hd == 64 || hd == 128) && aligned ? kFlashWgmma : kFlashMma;
+}
+
+int dispatch_flash(int variant, int hd, const void* q, const void* k, const void* v,
+                   void* o, int B, int Sq, int Sk, int H, int Hkv, int64_t sqb,
+                   int64_t sqs, int64_t sqh, int64_t skb, int64_t sks, int64_t skh,
+                   int64_t svb, int64_t svs, int64_t svh, int causal,
+                   cudaStream_t stream) {
+#define REPRO_FLASH_ARGS \
+  q, k, v, o, B, Sq, Sk, H, Hkv, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, causal, stream
+#define REPRO_FLASH(HD_)                                       \
+  case HD_:                                                    \
+    return variant == kFlashFp32 ? launch_flash<HD_>(REPRO_FLASH_ARGS) \
+                                 : launch_flash_mma<HD_>(REPRO_FLASH_ARGS);
+  if (variant == kFlashWgmma) {
+    if (hd == 64) return launch_flash_wgmma<64>(REPRO_FLASH_ARGS);
+    if (hd == 128) return launch_flash_wgmma<128>(REPRO_FLASH_ARGS);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (hd) {
     REPRO_FLASH(16)
     REPRO_FLASH(32)
@@ -574,150 +1097,337 @@ int dispatch_flash(int hd, const void* q, const void* k, const void* v, void* o,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_FLASH
+#undef REPRO_FLASH_ARGS
 }
 
 // ---------------------------------------------------------------------------
 // decode_attention (one token over the cache)
 // ---------------------------------------------------------------------------
 
-constexpr int decode_epl(int hd) { return hd >= 256 ? 8 : hd >= 128 ? 4 : 2; }
+constexpr int kDecTile = 32;     // cache positions a tile: one a lane
+constexpr int kDecMaxSplit = 8;  // splits of one (b, kv head): a portable cluster
 
-// lane groups per block: each group of hd / EPL lanes takes one position
-constexpr int decode_groups(int hd) { return (kThreads / 32) * (32 / (hd / decode_epl(hd))); }
+template <typename T, int HD, int GMAX>
+struct DecTile {
+  static constexpr int TS = kDecTile;
+  static constexpr int ELT = sizeof(T);
+  static constexpr int ROW = HD * ELT;                 // bytes of a cache row
+  static constexpr int SPAN = ROW < 128 ? ROW : 128;   // swizzle span = box width
+  static constexpr int SWMASK = SPAN / 16 - 1;         // 16-byte chunks a span, - 1
+  static constexpr int BOX_BYTES = TS * SPAN;
+  static constexpr int TILE_BYTES = TS * ROW;          // K or V of one tile
+  static constexpr int STAGE = 2 * TILE_BYTES;         // a warp's K and V
+  static constexpr int W = 4 * STAGE <= 196608 ? 4 : 196608 / STAGE;  // warps a block
+  static constexpr int THREADS = 32 * W;
+  static constexpr int V4 = 16 / ELT;                  // elements a 16-byte chunk
+  static constexpr int CPL = HD >= 32 ? HD / 32 : 1;   // P V columns a lane
+  static constexpr int LG = HD >= 32 ? 1 : 32 / HD;    // lane groups (hd < 32)
+  static constexpr int PPL = TS / LG;                  // positions a lane group
+  static constexpr int VEC = CPL < V4 ? CPL : V4;      // elements a V load
+  static constexpr int Q_OFF = W * STAGE;              // f32 (GMAX, HD), pre-scaled
+  static constexpr int P_OFF = Q_OFF + GMAX * HD * 4;  // f32 (W, GMAX, TS)
+  static constexpr int BAR_OFF = P_OFF + W * GMAX * TS * 4;
+  static constexpr int BYTES = BAR_OFF + W * 8 + 1024;  // + alignment
+  // a warp's partial (m, l: GMAX each; acc: GMAX x HD, f32) over its stage
+  static constexpr int PART_FLOATS = GMAX * (HD + 2);
+  static_assert(ROW % SPAN == 0 && SPAN >= 32, "cache row width");
+  static_assert(PART_FLOATS * 4 <= STAGE, "partial over the stage");
+  static_assert(PPL % 4 == 0 && (CPL * ELT) % (VEC * ELT) == 0, "P V steps");
+  static_assert(BYTES <= 232448, "shared memory");
+};
 
-template <typename T, int EPL, int GMAX>
-__global__ void __launch_bounds__(kThreads) decode_split_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    float* __restrict__ part_acc, float* __restrict__ part_m,
-    float* __restrict__ part_l, int H, int g, int hd, int n_valid, int chunk,
-    int n_part, int64_t sqb, int64_t sqh, int64_t skb, int64_t sks,
-    int64_t skh, int64_t svb, int64_t svs, int64_t svh, float scale) {
+// byte offset in a staged tile of 16-byte chunk c of position p: the tile
+// is ROW / SPAN boxes of TS rows x SPAN bytes, swizzled as TMA wrote it
+// (bits 4.. of the offset XOR bits 7.., over the span's chunk count), so a
+// warp reading one chunk of 32 positions hits every bank group
+template <typename F>
+__device__ __forceinline__ int dec_chunk(int p, int c) {
+  const int o = (c * 16 / F::SPAN) * F::BOX_BYTES + p * F::SPAN + (c * 16) % F::SPAN;
+  return o ^ (((o >> 7) & F::SWMASK) << 4);
+}
+
+// N consecutive elements (N * sizeof(T) in 2..16 bytes, aligned) as floats
+template <typename T, int N>
+__device__ __forceinline__ void load_f(const unsigned char* p, float (&x)[N]) {
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = reinterpret_cast<const float*>(p)[i];
+  } else if constexpr (N == 1) {
+    x[0] = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+}
+
+// lane 0 of a warp: K and V of tile `tile` (positions s0 + TS tile ..) into
+// the warp's stage, both completing on the warp's barrier
+template <typename F>
+__device__ __forceinline__ void dec_issue(unsigned char* stage, uint64_t* bar,
+                                          const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                          int tile, int s0, int hk, int b) {
+  const int pos = s0 + tile * F::TS;
+  mbar_expect_tx(bar, F::STAGE);
+  for (int x = 0; x < F::ROW / F::SPAN; ++x) {
+    const int c0 = x * (F::SPAN / F::ELT);
+    tma_load_4d(stage + x * F::BOX_BYTES, kmap, bar, c0, hk, pos, b);
+    tma_load_4d(stage + F::TILE_BYTES + x * F::BOX_BYTES, vmap, bar, c0, hk, pos, b);
+  }
+}
+
+// One block per (split, kv head, batch row) takes the g query heads of the
+// kv head over cache positions [s0, s1), in tiles of TS positions. Each
+// warp takes tiles warp, warp + W, .. on its own: it streams a tile's K
+// and V into its stage by TMA, scores its TS positions (a lane each) for
+// all g heads, keeps the online softmax of each head in registers (one max
+// and one sum per head and tile), and adds P V into columns of its own;
+// no block-wide barrier until the end. The n_split blocks of one
+// (b, kv head) form a thread-block cluster: every warp leaves its (m, l,
+// acc) partial in its block's shared memory, and the cluster merges them
+// over distributed shared memory in (split, warp) order.
+template <typename T, int HD, int GMAX>
+__global__ void __launch_bounds__(DecTile<T, HD, GMAX>::THREADS) decode_split_kernel(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const T* __restrict__ q, T* __restrict__ out, int H, int g, int n_valid, int chunk,
+    int64_t sqb, int64_t sqh, float scale_log2) {
+  using F = DecTile<T, HD, GMAX>;
+  extern __shared__ __align__(1024) unsigned char smem_dec[];
+  unsigned char* base = align1024(smem_dec);
+  float* q_s = reinterpret_cast<float*>(base + F::Q_OFF);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + F::BAR_OFF);
+
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int lpp = hd / EPL;  // lanes per position: 8, 16 or 32
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane / lpp, li = lane % lpp;
-  const int per_warp = 32 / lpp;
-  const int n_groups = (kThreads / 32) * per_warp;
-  const int grp = warp * per_warp + sub;
+  const int n_split = gridDim.x;  // = the cluster
+  const int s0 = split * chunk, s1 = min(s0 + chunk, n_valid);
+  const int n_tiles = (s1 - s0 + F::TS - 1) / F::TS;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  unsigned char* stage = base + warp * F::STAGE;
+  uint64_t* bar = bars + warp;
+  float* p_s = reinterpret_cast<float*>(base + F::P_OFF) + warp * GMAX * F::TS;
 
-  float qr[GMAX][EPL], m[GMAX], l[GMAX], acc[GMAX][EPL];
+  if (t == 0) {  // every warp's first tile in flight before anything else
+    for (int w = 0; w < F::W; ++w) mbar_init(bars + w, 1);
+    fence_barrier_init();
+    for (int w = 0; w < F::W && w < n_tiles; ++w)
+      dec_issue<F>(base + w * F::STAGE, bars + w, &kmap, &vmap, w, s0, hk, b);
+  }
+  for (int i = t; i < GMAX * HD; i += F::THREADS) {
+    const int gi = i / HD, d = i % HD;
+    q_s[i] = gi < g ? to_f(q[b * sqb + (hk * g + gi) * sqh + d]) * scale_log2 : 0.f;
+  }
+  __syncthreads();
+
+  // P V: lane (col0 .. col0 + CPL) x positions [pp0, pp0 + PPL)
+  const int col0 = (lane % (32 / F::LG)) * F::CPL;
+  const int pp0 = (lane / (32 / F::LG)) * F::PPL;
+  float acc[GMAX][F::CPL];
+  float m[GMAX], l[GMAX];  // the same in every lane
 #pragma unroll
   for (int gi = 0; gi < GMAX; ++gi) {
-    m[gi] = kNegInf;
+    m[gi] = -INFINITY;
     l[gi] = 0.f;
 #pragma unroll
-    for (int i = 0; i < EPL; ++i) {
-      acc[gi][i] = 0.f;
-      qr[gi][i] = gi < g ? to_f(q[b * sqb + (hk * g + gi) * sqh + i * lpp + li]) * scale
-                         : 0.f;
-    }
+    for (int c = 0; c < F::CPL; ++c) acc[gi][c] = 0.f;
   }
 
-  const T* kb = k + b * skb + hk * skh;
-  const T* vb = v + b * svb + hk * svh;
-  const int s0 = split * chunk, s1 = min(s0 + chunk, n_valid);
-  // the loop bound is the same for every lane of a warp, so the shuffles
-  // below always run with the whole warp; lanes past s1 read nothing
-  for (int base = s0 + warp * per_warp; base < s1; base += n_groups) {
-    const int s = base + sub;
-    const bool live = s < s1;
-    float kr[EPL], vr[EPL];
+  for (int tile = warp, use = 0; tile < n_tiles; tile += F::W, ++use) {
+    mbar_wait(bar, use & 1);
+    const unsigned char* ks = stage;
+    const unsigned char* vs = stage + F::TILE_BYTES;
+
+    // scores at position `lane`, all heads (two partial sums each)
+    float dot[GMAX][2];
 #pragma unroll
-    for (int i = 0; i < EPL; ++i) {
-      kr[i] = live ? to_f(kb[s * sks + i * lpp + li]) : 0.f;
-      vr[i] = live ? to_f(vb[s * svs + i * lpp + li]) : 0.f;
-    }
-    float sc[GMAX];
+    for (int gi = 0; gi < GMAX; ++gi) dot[gi][0] = dot[gi][1] = 0.f;
 #pragma unroll
-    for (int gi = 0; gi < GMAX; ++gi) {
-      float d = 0.f;
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) d = fmaf(qr[gi][i], kr[i], d);
-      sc[gi] = d;
-    }
-    for (int off = lpp / 2; off > 0; off >>= 1) {
-#pragma unroll
-      for (int gi = 0; gi < GMAX; ++gi) sc[gi] += __shfl_xor_sync(0xffffffffu, sc[gi], off);
-    }
-    if (live) {
+    for (int c = 0; c < HD / F::V4; ++c) {
+      float kv[F::V4];
+      load_f<T, F::V4>(ks + dec_chunk<F>(lane, c), kv);
 #pragma unroll
       for (int gi = 0; gi < GMAX; ++gi) {
-        const float m_new = fmaxf(m[gi], sc[gi]);
-        const float alpha = expf(m[gi] - m_new);
-        const float p = expf(sc[gi] - m_new);
-        l[gi] = fmaf(l[gi], alpha, p);
+        const float4* qv = reinterpret_cast<const float4*>(q_s + gi * HD + c * F::V4);
 #pragma unroll
-        for (int i = 0; i < EPL; ++i) acc[gi][i] = fmaf(acc[gi][i], alpha, p * vr[i]);
-        m[gi] = m_new;
+        for (int e4 = 0; e4 < F::V4 / 4; ++e4) {
+          const float4 w = qv[e4];
+          float& d = dot[gi][(c * (F::V4 / 4) + e4) & 1];
+          d = fmaf(kv[4 * e4], w.x, d);
+          d = fmaf(kv[4 * e4 + 1], w.y, d);
+          d = fmaf(kv[4 * e4 + 2], w.z, d);
+          d = fmaf(kv[4 * e4 + 3], w.w, d);
+        }
       }
     }
-  }
-
-  const int pidx = split * n_groups + grp;
+    // online softmax per head over the tile; a tile holds a live position
+    // (its first), so each max is finite
+    const bool live = s0 + tile * F::TS + lane < s1;
 #pragma unroll
-  for (int gi = 0; gi < GMAX; ++gi) {
-    if (gi >= g) break;
-    const int64_t row = (static_cast<int64_t>(b) * H + hk * g + gi) * n_part + pidx;
+    for (int gi = 0; gi < GMAX; ++gi) {
+      if (gi < g) {
+        const float sv = live ? dot[gi][0] + dot[gi][1] : -INFINITY;
+        float mx = sv;
 #pragma unroll
-    for (int i = 0; i < EPL; ++i) part_acc[row * hd + i * lpp + li] = acc[gi][i];
-    if (li == 0) {
-      part_m[row] = m[gi];
-      part_l[row] = l[gi];
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[gi], mx);
+        const float pv = exp2f(sv - m_new);
+        float sum = pv;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        const float alpha = exp2f(m[gi] - m_new);
+        l[gi] = fmaf(l[gi], alpha, sum);
+        m[gi] = m_new;
+        p_s[gi * F::TS + lane] = pv;
+#pragma unroll
+        for (int c = 0; c < F::CPL; ++c) acc[gi][c] *= alpha;
+      }
     }
+    __syncwarp();
+
+    // acc += P V over this lane group's positions, four a step
+#pragma unroll
+    for (int pp = pp0; pp < pp0 + F::PPL; pp += 4) {
+      float vv[4][F::CPL];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int c = 0; c < F::CPL; c += F::VEC) {
+          const int e = col0 + c;
+          float x[F::VEC];
+          load_f<T, F::VEC>(vs + dec_chunk<F>(pp + u, e / F::V4) + (e % F::V4) * F::ELT, x);
+#pragma unroll
+          for (int i = 0; i < F::VEC; ++i) vv[u][c + i] = x[i];
+        }
+#pragma unroll
+      for (int gi = 0; gi < GMAX; ++gi) {
+        if (gi < g) {
+          const float4 w = *reinterpret_cast<const float4*>(p_s + gi * F::TS + pp);
+#pragma unroll
+          for (int c = 0; c < F::CPL; ++c) {
+            float a = acc[gi][c];
+            a = fmaf(w.x, vv[0][c], a);
+            a = fmaf(w.y, vv[1][c], a);
+            a = fmaf(w.z, vv[2][c], a);
+            a = fmaf(w.w, vv[3][c], a);
+            acc[gi][c] = a;
+          }
+        }
+      }
+    }
+    __syncwarp();  // the stage and P are consumed
+    if (lane == 0 && tile + F::W < n_tiles)
+      dec_issue<F>(stage, bar, &kmap, &vmap, tile + F::W, s0, hk, b);
   }
+
+  // lane groups (hd < 32) sum their positions' parts, in a fixed order
+#pragma unroll
+  for (int off = 32 / F::LG; off < 32; off <<= 1)
+#pragma unroll
+    for (int gi = 0; gi < GMAX; ++gi) acc[gi][0] += __shfl_xor_sync(0xffffffffu, acc[gi][0], off);
+
+  // the warp's partial over its stage (its last TMA has landed and is read)
+  float* part = reinterpret_cast<float*>(stage);  // m (GMAX), l (GMAX), acc (GMAX, HD)
+  if (lane < GMAX) {
+#pragma unroll
+    for (int gi = 0; gi < GMAX; ++gi)
+      if (gi == lane) {
+        part[gi] = m[gi];
+        part[GMAX + gi] = l[gi];
+      }
+  }
+  if (lane < 32 / F::LG) {
+#pragma unroll
+    for (int gi = 0; gi < GMAX; ++gi)
+#pragma unroll
+      for (int c = 0; c < F::CPL; ++c) part[2 * GMAX + gi * HD + col0 + c] = acc[gi][c];
+  }
+
+  // the cluster merges: block r takes outputs r * THREADS + t, + n_split *
+  // THREADS, ..; each reads every warp's partial in (split, warp) order
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int64_t bh0 = static_cast<int64_t>(b) * H + hk * g;  // (b, first head)
+  for (int i = split * F::THREADS + t; i < g * HD; i += n_split * F::THREADS) {
+    const int gi = i / HD;
+    float mx = -INFINITY, den = 0.f, num = 0.f;  // one pass, rescaled as it goes
+    for (int p = 0; p < n_split; ++p) {
+      const float* peer = cluster.map_shared_rank(reinterpret_cast<float*>(base), p);
+#pragma unroll
+      for (int w = 0; w < F::W; ++w) {
+        const float* pw = peer + w * (F::STAGE / 4);
+        const float mp = pw[gi];
+        if (mp == -INFINITY) continue;  // a warp without a tile
+        const float m_new = fmaxf(mx, mp);
+        const float a_old = exp2f(mx - m_new), a_p = exp2f(mp - m_new);
+        den = fmaf(den, a_old, a_p * pw[GMAX + gi]);
+        num = fmaf(num, a_old, a_p * pw[2 * GMAX + i]);
+        mx = m_new;
+      }
+    }
+    out[bh0 * HD + i] = from_f<T>(num / fmaxf(den, 1e-30f));
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ part_acc,
-                                      const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      T* __restrict__ out, int H, int hd,
-                                      int n_part) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int64_t row0 = (static_cast<int64_t>(b) * H + h) * n_part;
-  float mx = kNegInf;
-  for (int p = 0; p < n_part; ++p) mx = fmaxf(mx, part_m[row0 + p]);
-  float den = 0.f, num = 0.f;
-  for (int p = 0; p < n_part; ++p) {
-    const float w = expf(part_m[row0 + p] - mx);
-    den = fmaf(w, part_l[row0 + p], den);
-    num = fmaf(w, part_acc[(row0 + p) * hd + d], num);
+template <typename T, int HD, int GMAX>
+int launch_decode(const void* q, const void* k, const void* v, void* o, int B, int H,
+                  int Hkv, int n_valid, int n_split, int chunk, int64_t sqb, int64_t sqh,
+                  int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs,
+                  int64_t svh, cudaStream_t stream) {
+  using F = DecTile<T, HD, GMAX>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<T, HD, GMAX>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           F::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
   }
-  out[(static_cast<int64_t>(b) * H + h) * hd + d] = from_f<T>(num / fmaxf(den, 1e-30f));
-}
-
-template <typename T, int EPL, int GMAX>
-int launch_decode(const void* q, const void* k, const void* v, void* o,
-                  float* part_acc, float* part_m, float* part_l, int B, int H,
-                  int Hkv, int hd, int n_valid, int n_split, int chunk,
-                  int64_t sqb, int64_t sqh, int64_t skb, int64_t sks,
-                  int64_t skh, int64_t svb, int64_t svs, int64_t svh,
-                  cudaStream_t stream) {
-  const int n_part = n_split * decode_groups(hd);
-  decode_split_kernel<T, EPL, GMAX><<<dim3(n_split, Hkv, B), kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), part_acc, part_m, part_l, H, H / Hkv, hd,
-      n_valid, chunk, n_part, sqb, sqh, skb, sks, skh, svb, svs, svh,
-      1.f / sqrtf(static_cast<float>(hd)));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<T><<<dim3(H, B), hd, 0, stream>>>(
-      part_acc, part_m, part_l, static_cast<T*>(o), H, hd, n_part);
+  const CUtensorMapSwizzle sw = F::SPAN == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : F::SPAN == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  // the maps end at n_valid: TMA zero-fills past it and never reads there
+  CUtensorMap km, vm;
+  int err = make_map(&km, k, F::ELT, HD, Hkv, n_valid, B, skh, sks, skb, F::SPAN / F::ELT,
+                     F::TS, sw);
+  if (err == 0)
+    err = make_map(&vm, v, F::ELT, HD, Hkv, n_valid, B, svh, svs, svb, F::SPAN / F::ELT,
+                   F::TS, sw);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, Hkv, B);
+  cfg.blockDim = dim3(F::THREADS);
+  cfg.dynamicSmemBytes = F::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;  // the splits of one (b, kv head)
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, decode_split_kernel<T, HD, GMAX>, km, vm, static_cast<const T*>(q),
+      static_cast<T*>(o), H, H / Hkv, n_valid, chunk, sqb, sqh,
+      1.4426950408889634f / sqrtf(static_cast<float>(HD)));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int EPL>
-int dispatch_decode_g(int g, const void* q, const void* k, const void* v,
-                      void* o, float* pa, float* pm, float* pl, int B, int H,
-                      int Hkv, int hd, int n_valid, int n_split, int chunk,
-                      int64_t sqb, int64_t sqh, int64_t skb, int64_t sks,
-                      int64_t skh, int64_t svb, int64_t svs, int64_t svh,
+template <typename T, int HD>
+int dispatch_decode_g(int g, const void* q, const void* k, const void* v, void* o,
+                      int B, int H, int Hkv, int n_valid,
+                      int n_split, int chunk, int64_t sqb, int64_t sqh, int64_t skb,
+                      int64_t sks, int64_t skh, int64_t svb, int64_t svs, int64_t svh,
                       cudaStream_t stream) {
-#define REPRO_DECODE(G_)                                                          \
-  if (g <= G_)                                                                    \
-    return launch_decode<T, EPL, G_>(q, k, v, o, pa, pm, pl, B, H, Hkv, hd,       \
-                                     n_valid, n_split, chunk, sqb, sqh, skb, sks, \
-                                     skh, svb, svs, svh, stream);
+#define REPRO_DECODE(G_)                                                                 \
+  if (g <= G_)                                                                           \
+    return launch_decode<T, HD, G_>(q, k, v, o, B, H, Hkv, n_valid, n_split, \
+                                    chunk, sqb, sqh, skb, sks, skh, svb, svs, svh, stream);
   REPRO_DECODE(1)
   REPRO_DECODE(2)
   REPRO_DECODE(4)
@@ -728,26 +1438,27 @@ int dispatch_decode_g(int g, const void* q, const void* k, const void* v,
 }
 
 template <typename T>
-int dispatch_decode(const void* q, const void* k, const void* v, void* o,
-                    float* pa, float* pm, float* pl, int B, int H, int Hkv,
-                    int hd, int n_valid, int n_split, int chunk, int64_t sqb,
-                    int64_t sqh, int64_t skb, int64_t sks, int64_t skh,
-                    int64_t svb, int64_t svs, int64_t svh, cudaStream_t stream) {
+int dispatch_decode(const void* q, const void* k, const void* v, void* o, int B,
+                    int H, int Hkv, int hd, int n_valid,
+                    int n_split, int chunk, int64_t sqb, int64_t sqh, int64_t skb,
+                    int64_t sks, int64_t skh, int64_t svb, int64_t svs, int64_t svh,
+                    cudaStream_t stream) {
   const int g = H / Hkv;
-  switch (decode_epl(hd)) {
-    case 2:
-      return dispatch_decode_g<T, 2>(g, q, k, v, o, pa, pm, pl, B, H, Hkv, hd, n_valid,
-                                     n_split, chunk, sqb, sqh, skb, sks, skh, svb, svs,
+#define REPRO_DECODE_HD(HD_)                                                            \
+  case HD_:                                                                             \
+    return dispatch_decode_g<T, HD_>(g, q, k, v, o, B, H, Hkv, n_valid,                \
+                                     n_split, chunk, sqb, sqh, skb, sks, skh, svb, svs, \
                                      svh, stream);
-    case 4:
-      return dispatch_decode_g<T, 4>(g, q, k, v, o, pa, pm, pl, B, H, Hkv, hd, n_valid,
-                                     n_split, chunk, sqb, sqh, skb, sks, skh, svb, svs,
-                                     svh, stream);
+  switch (hd) {
+    REPRO_DECODE_HD(16)
+    REPRO_DECODE_HD(32)
+    REPRO_DECODE_HD(64)
+    REPRO_DECODE_HD(128)
+    REPRO_DECODE_HD(256)
     default:
-      return dispatch_decode_g<T, 8>(g, q, k, v, o, pa, pm, pl, B, H, Hkv, hd, n_valid,
-                                     n_split, chunk, sqb, sqh, skb, sks, skh, svb, svs,
-                                     svh, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_DECODE_HD
 }
 
 bool supported_hd(int hd) {
@@ -758,47 +1469,41 @@ bool supported_hd(int hd) {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
 // dimension of every tensor is contiguous and o is a contiguous
-// (B, Sq, H, hd) tensor. Returns a cudaError_t value (0 = launched).
+// (B, Sq, H, hd) tensor. *variant receives the kernel that was launched
+// (0 flash_kernel, 1 flash_mma_kernel, 2 flash_wgmma_kernel). Returns a
+// cudaError_t value (0 = launched).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Sk, int H, int Hkv, int hd, int64_t sqb, int64_t sqs,
     int64_t sqh, int64_t skb, int64_t sks, int64_t skh, int64_t svb,
-    int64_t svs, int64_t svh, int causal, cudaStream_t stream) {
+    int64_t svs, int64_t svh, int causal, int* variant, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || H % Hkv != 0 || !supported_hd(hd) ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || variant == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return dispatch_flash<float>(hd, q, k, v, o, B, Sq, Sk, H, Hkv, sqb, sqs, sqh, skb,
-                                 sks, skh, svb, svs, svh, causal, stream);
-  return dispatch_flash<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Sk, H, Hkv, sqb, sqs, sqh,
-                                       skb, sks, skh, svb, svs, svh, causal, stream);
-}
-
-// Partials per split for head dim hd: the caller allocates part_acc
-// (B, H, n_split * this, hd) and part_m / part_l (B, H, n_split * this),
-// all float32.
-extern "C" int repro_decode_partials_per_split(int hd) {
-  return supported_hd(hd) ? decode_groups(hd) : 0;
+  const int64_t strides[9] = {sqb, sqs, sqh, skb, sks, skh, svb, svs, svh};
+  *variant = flash_variant(dtype, hd, q, k, v, strides);
+  return dispatch_flash(*variant, hd, q, k, v, o, B, Sq, Sk, H, Hkv, sqb, sqs, sqh, skb,
+                        sks, skh, svb, svs, svh, causal, stream);
 }
 
 // Positions [0, n_valid) of the cache are read, in n_split chunks of
-// `chunk` positions (n_split * chunk >= n_valid). o is a contiguous
-// (B, H, hd) tensor.
+// `chunk` positions (n_split * chunk >= n_valid > (n_split - 1) * chunk,
+// n_split at most 8: the chunks of one (b, kv head) are one cluster);
+// nothing at or past n_valid is read. k and v need 16-byte aligned bases
+// and strides (TMA). o is a contiguous (B, H, hd) tensor. One launch.
 extern "C" int repro_decode_attention(
-    const void* q, const void* k, const void* v, void* o, float* part_acc,
-    float* part_m, float* part_l, int dtype, int B, int H, int Hkv, int hd,
-    int n_valid, int n_split, int chunk, int64_t sqb, int64_t sqh,
-    int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs,
-    int64_t svh, cudaStream_t stream) {
+    const void* q, const void* k, const void* v, void* o, int dtype, int B, int H,
+    int Hkv, int hd, int n_valid, int n_split, int chunk, int64_t sqb, int64_t sqh,
+    int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs, int64_t svh,
+    cudaStream_t stream) {
   if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > 16 || !supported_hd(hd) ||
-      n_valid <= 0 || n_split <= 0 || chunk <= 0 ||
-      static_cast<int64_t>(n_split) * chunk < n_valid || (dtype != 0 && dtype != 1))
+      n_valid <= 0 || n_split <= 0 || n_split > kDecMaxSplit || chunk <= 0 ||
+      static_cast<int64_t>(n_split) * chunk < n_valid ||
+      static_cast<int64_t>(n_split - 1) * chunk >= n_valid || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch_decode<float>(q, k, v, o, part_acc, part_m, part_l, B, H, Hkv, hd,
-                                  n_valid, n_split, chunk, sqb, sqh, skb, sks, skh, svb,
-                                  svs, svh, stream);
-  return dispatch_decode<__nv_bfloat16>(q, k, v, o, part_acc, part_m, part_l, B, H, Hkv,
-                                        hd, n_valid, n_split, chunk, sqb, sqh, skb, sks,
-                                        skh, svb, svs, svh, stream);
+    return dispatch_decode<float>(q, k, v, o, B, H, Hkv, hd, n_valid, n_split, chunk, sqb,
+                                  sqh, skb, sks, skh, svb, svs, svh, stream);
+  return dispatch_decode<__nv_bfloat16>(q, k, v, o, B, H, Hkv, hd, n_valid, n_split, chunk,
+                                        sqb, sqh, skb, sks, skh, svb, svs, svh, stream);
 }

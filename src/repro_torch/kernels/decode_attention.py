@@ -5,14 +5,16 @@ Hopper kernel.
 ``repro/kernels/decode_attention.py::_decode_kernel``: single-token GQA
 attention over the cache at positions ``<= cur_len``, ``cur_len`` one host
 int for the whole batch. The kernel is in ``csrc/attention.cu`` (its header
-gives the design and the bound on the card): a split-KV pass and a combine
-pass, two launches that count as one call. Its plain-PyTorch version is
+gives the design and the bound on the card): one split-KV launch whose
+blocks stream the cache through a TMA ring, the splits of each (b, kv
+head) one thread-block cluster that merges their partials in distributed
+shared memory. Its plain-PyTorch version is
 ``kernels/ref.py::decode_attn_ref``.
 
 The wrapper takes CUDA tensors only: it checks every input, allocates the
-output and the f32 partials with ``torch.empty``, launches on the current
-stream without synchronising (``cur_len`` never comes from the device),
-raises on a launch error, and counts its calls in ``launches``.
+output with ``torch.empty``, launches on the current stream without
+synchronising (``cur_len`` never comes from the device), raises on a
+launch error, and counts its calls in ``launches``.
 """
 from __future__ import annotations
 
@@ -27,23 +29,23 @@ from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
 launches = {"decode_attention": 0}
 
 MAX_GROUP = 16  # query heads per kv head the kernel holds in registers
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_int64] * 8
+TILE = 32  # cache positions a tile, one a lane (csrc kDecTile)
+BLOCK_TILES = 4  # tiles a block takes at once: one a warp
+MAX_SPLIT = 8  # chunks of one (b, kv head): one portable cluster (csrc kDecMaxSplit)
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_int64] * 8
              + [ctypes.c_void_p])
 _bound = {}  # entry name -> its ctypes function, typed once
 _sms = {}  # device index -> multiprocessor count
 
 
-def _lib():
-    if not _bound:
-        lib = _build.load("attention")
-        fn = lib.repro_decode_attention
+def _entry():
+    fn = _bound.get("decode")
+    if fn is None:
+        fn = _build.load("attention").repro_decode_attention
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        per = lib.repro_decode_partials_per_split
-        per.argtypes = [ctypes.c_int]
-        per.restype = ctypes.c_int
-        _bound.update(decode=fn, per_split=per)
-    return _bound
+        _bound["decode"] = fn
+    return fn
 
 
 def reset_launches() -> None:
@@ -56,7 +58,8 @@ def check_inputs(q, k, v, cur_len) -> None:
     and the cache k/v (B, S, Hkv, hd) of one dtype (float32 or bfloat16) on
     one device, H a multiple of Hkv with at most ``MAX_GROUP`` query heads a
     kv head, hd in ``HEAD_DIMS``, the head dimension contiguous, and
-    ``cur_len`` a non-negative int."""
+    ``cur_len`` a non-negative int; the cache's base and strides 16-byte
+    aligned (the kernel reads it by TMA)."""
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B,H,hd) and k, v (B,S,Hkv,hd) of one "
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -79,6 +82,11 @@ def check_inputs(q, k, v, cur_len) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dimension must be contiguous")
+    for name, t in (("k", k), ("v", v)):
+        elt = t.element_size()
+        if t.data_ptr() % 16 or any(t.stride(i) * elt % 16 for i in range(3)):
+            raise ValueError(f"{name}'s base and strides must be 16-byte "
+                             f"aligned")
     if not isinstance(cur_len, numbers.Integral) or cur_len < 0:
         raise ValueError(f"cur_len must be a non-negative int (a host value),"
                          f" got {cur_len!r}")
@@ -87,12 +95,15 @@ def check_inputs(q, k, v, cur_len) -> None:
 
 
 def split_plan(n_blocks_bh: int, n_valid: int, sms: int):
-    """(n_split, chunk): cut positions [0, n_valid) into chunks so that
-    n_blocks_bh * n_split blocks come to about two per SM, with no more
-    chunks than ceil(n_valid / 16) and no empty chunk."""
-    want = max(1, -(-2 * sms // n_blocks_bh))
-    n_split = max(1, min(want, -(-n_valid // 16)))
-    chunk = -(-n_valid // n_split)
+    """(n_split, chunk): cut positions [0, n_valid) into chunks of whole
+    ``TILE``-position tiles, about ``BLOCK_TILES`` tiles a chunk (a tile
+    for each warp of a block), but more and smaller chunks while
+    n_blocks_bh * n_split blocks would not cover the ``sms`` SMs; at most
+    ``MAX_SPLIT`` chunks, none empty."""
+    tiles = -(-n_valid // TILE)
+    n_split = min(MAX_SPLIT, tiles,
+                  max(-(-tiles // BLOCK_TILES), -(-sms // n_blocks_bh)))
+    chunk = -(-(-(-n_valid // n_split)) // TILE) * TILE
     return -(-n_valid // chunk), chunk
 
 
@@ -109,15 +120,10 @@ def decode_attention(q, k, v, cur_len: int):
     if idx not in _sms:
         _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     n_split, chunk = split_plan(B * Hkv, n_valid, _sms[idx])
-    lib = _lib()
-    n_part = n_split * lib["per_split"](hd)
     out = torch.empty((B, H, hd), dtype=q.dtype, device=dev)
-    part_acc = torch.empty((B, H, n_part, hd), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((2, B, H, n_part), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib["decode"](
+        err = _entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
             DTYPES[q.dtype], B, H, Hkv, hd, n_valid, n_split, chunk,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),

@@ -6,10 +6,19 @@ attention with an online softmax. The kernel is in ``csrc/attention.cu``
 (its header gives the design and the bound on the card); its plain-PyTorch
 version is ``kernels/ref.py::mha_ref``.
 
+The kernel has three hand-written variants, chosen by one rule
+(``flash_variant``, the same rule as ``csrc/attention.cu::flash_variant``):
+``flash_wgmma`` (bf16 at hd 64 or 128 with 16-byte aligned bases and
+strides: wgmma fed by a TMA ring), ``flash_mma`` (any other bf16:
+``mma.sync``) and ``flash_fp32`` (float32, on the fp32 cores). There is no
+fallback between them: the C entry point reports the variant it launched,
+and the wrapper raises if that is not the rule's.
+
 The wrapper takes CUDA tensors only: it checks every input, allocates the
 output with ``torch.empty``, launches on the current stream without
 synchronising, raises on a launch error, and counts its launches in
-``launches``. q, k and v are read through their strides (the last dimension
+``launches``: the total under ``"flash_attention"`` and each variant under
+its name. q, k and v are read through their strides (the last dimension
 must be contiguous), so views of the projections need no copy.
 """
 from __future__ import annotations
@@ -22,12 +31,14 @@ from repro_torch.kernels import _build
 
 # kernel name -> launches since the last reset (read by chip_smoke.py to
 # prove the serving path went through the kernel)
-launches = {"flash_attention": 0}
+VARIANTS = ("flash_fp32", "flash_mma", "flash_wgmma")  # the C entry's codes
+launches = {"flash_attention": 0, **{name: 0 for name in VARIANTS}}
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 9
-             + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 _bound = {}  # entry name -> its ctypes function, typed once
 
 
@@ -76,6 +87,26 @@ def check_inputs(q, k, v) -> None:
         raise ValueError("q and k must be non-empty")
 
 
+def flash_variant(dtype, hd: int, data_ptrs, strides) -> str:
+    """The variant the kernel takes for these inputs: ``flash_fp32`` for
+    float32; ``flash_wgmma`` for bfloat16 at hd 64 or 128 when every base
+    pointer is 16-byte aligned and every stride (batch, row and head of q,
+    k and v, in elements) a positive multiple of 8 elements, as TMA
+    needs; else ``flash_mma``. Plain metadata, so it runs on the CPU."""
+    if dtype == torch.float32:
+        return "flash_fp32"
+    aligned = (all(p % 16 == 0 for p in data_ptrs)
+               and all(s > 0 and s % 8 == 0 for s in strides))
+    return "flash_wgmma" if hd in WGMMA_HEAD_DIMS and aligned else "flash_mma"
+
+
+def variant_of(q, k, v) -> str:
+    """``flash_variant`` of three tensors (on any device)."""
+    return flash_variant(q.dtype, q.shape[3],
+                         [t.data_ptr() for t in (q, k, v)],
+                         [t.stride(i) for t in (q, k, v) for i in range(3)])
+
+
 def flash_attention(q, k, v, causal: bool = True):
     """(B, Sq, H, hd) attention output in ``q.dtype``; one kernel launch."""
     check_inputs(q, k, v)
@@ -83,16 +114,23 @@ def flash_attention(q, k, v, causal: bool = True):
         raise ValueError(f"flash_attention takes CUDA tensors, got {q.device}")
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    want = variant_of(q, k, v)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     fn = _entry()
+    ran = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  DTYPES[q.dtype], B, Sq, Sk, H, Hkv, hd,
                  q.stride(0), q.stride(1), q.stride(2),
                  k.stride(0), k.stride(1), k.stride(2),
                  v.stride(0), v.stride(1), v.stride(2), int(bool(causal)),
+                 ctypes.byref(ran),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    if not 0 <= ran.value < len(VARIANTS) or VARIANTS[ran.value] != want:
+        raise RuntimeError(f"flash_attention launched variant {ran.value}, "
+                           f"the rule says {want}")
     launches["flash_attention"] += 1
+    launches[want] += 1
     return out

@@ -113,13 +113,82 @@ def test_wrappers_refuse_cpu_tensors_and_bad_inputs():
 
 
 def test_decode_split_plan():
-    """Splits fill about two blocks per SM, never leave a chunk empty, and
-    cover exactly the positions <= cur_len."""
-    assert dec.split_plan(40, 544, 132) == (7, 78)
-    assert dec.split_plan(40, 1, 132) == (1, 1)
-    assert dec.split_plan(1000, 544, 132) == (1, 544)
+    """Chunks are whole tiles (``TILE`` positions), about ``BLOCK_TILES`` a
+    chunk, smaller while the blocks would not cover the SMs; at most
+    ``MAX_SPLIT`` chunks (one cluster), none empty, and together exactly
+    the positions <= cur_len."""
+    T = dec.TILE
+    assert dec.split_plan(40, 544, 132) == (5, 128)
+    assert dec.split_plan(40, 272, 132) == (3, 96)
+    assert dec.split_plan(40, 1, 132) == (1, T)
+    assert dec.split_plan(1000, 544, 132) == (5, 128)
+    assert dec.split_plan(1, 4096, 132) == (dec.MAX_SPLIT, 512)
+    assert dec.split_plan(4, 300, 132) == (5, 64)
     for bh in (1, 4, 40, 300):
-        for n in (1, 15, 16, 17, 100, 543, 4096):
+        for n in (1, 15, 16, 17, 31, 32, 33, 100, 543, 4096):
             n_split, chunk = dec.split_plan(bh, n, 132)
             assert n_split * chunk >= n > (n_split - 1) * chunk
-            assert n_split <= -(-n // 16)
+            assert chunk % T == 0 and n_split <= -(-n // T)
+            assert n_split <= dec.MAX_SPLIT
+            assert chunk <= max(T, dec.BLOCK_TILES * T,
+                                -(-n // dec.MAX_SPLIT) + T)
+
+
+def _meta(dtype, hd, shift=0, row_stride=None):
+    """(dtype, hd, pointers, strides) of q (1, 64, 8, hd) and k/v
+    (1, 64, 2, hd) as contiguous tensors would have, or with every base
+    pointer shifted by ``shift`` bytes or every row stride replaced."""
+    ptrs = [4096 + shift, 65536 + shift, 131072 + shift]
+    strides = []
+    for heads in (8, 2, 2):
+        rs = heads * hd if row_stride is None else row_stride
+        strides += [64 * rs, rs, hd]
+    return dtype, hd, ptrs, strides
+
+
+@pytest.mark.parametrize("meta,want", [
+    (_meta(torch.bfloat16, 128), "flash_wgmma"),
+    (_meta(torch.bfloat16, 64), "flash_wgmma"),
+    (_meta(torch.bfloat16, 32), "flash_mma"),
+    (_meta(torch.bfloat16, 256), "flash_mma"),
+    (_meta(torch.bfloat16, 128, shift=8), "flash_mma"),
+    (_meta(torch.bfloat16, 128, row_stride=8 * 128 + 4), "flash_mma"),
+    (_meta(torch.bfloat16, 64, row_stride=8 * 64 + 8), "flash_wgmma"),
+    (_meta(torch.float32, 128), "flash_fp32"),
+    (_meta(torch.float32, 128, shift=4), "flash_fp32"),
+])
+def test_flash_variant_rule(meta, want):
+    """Which hand-written B3 variant a call takes, from dtype, hd,
+    alignment and strides alone (the rule the C entry point applies)."""
+    assert fa.flash_variant(*meta) == want
+
+
+def test_flash_variant_of_tensors():
+    """The rule read off CPU tensors' metadata: contiguous projections and
+    views of a fused projection are TMA-able; an odd row stride is not."""
+    q = torch.zeros((4, 32, 40, 128), dtype=torch.bfloat16)
+    kv = torch.zeros((4, 32, 10, 128), dtype=torch.bfloat16)
+    assert fa.variant_of(q, kv, kv) == "flash_wgmma"
+    assert fa.variant_of(q.float(), kv.float(), kv.float()) == "flash_fp32"
+    qkv = torch.zeros((2, 16, 8, 64), dtype=torch.bfloat16)
+    assert fa.variant_of(qkv[:, :, :4], qkv[:, :, 4:6],
+                         qkv[:, :, 6:]) == "flash_wgmma"
+    buf = torch.zeros((2, 16, 8 * 64 + 4), dtype=torch.bfloat16)
+    heads = buf[..., :8 * 64].unflatten(-1, (8, 64))
+    assert fa.variant_of(heads[:, :, :4], heads[:, :, 4:6],
+                         heads[:, :, 6:]) == "flash_mma"
+    assert set(fa.launches) == {"flash_attention", *fa.VARIANTS}
+
+
+def test_decode_refuses_unaligned_cache():
+    """The decode kernel reads the cache by TMA: a cache view whose base or
+    strides are not 16-byte aligned is refused before any launch."""
+    q = torch.zeros((1, 4, 64))
+    kv = torch.zeros((1, 8, 2, 64))
+    dec.check_inputs(q, kv, kv, 3)
+    shifted = torch.zeros(1 * 8 * 2 * 64 + 1)[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        dec.check_inputs(q, shifted, kv, 3)
+    wide = torch.zeros((1, 8, 2, 65))[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        dec.check_inputs(q, kv, wide, 3)

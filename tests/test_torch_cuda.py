@@ -113,7 +113,8 @@ def _randn(shape, seed, dtype, dev):
     (2, 128, 128, 4, 2, 64, True), (1, 256, 256, 8, 8, 32, True),
     (2, 64, 64, 4, 1, 128, False), (1, 1000, 1000, 8, 2, 128, True),
     (2, 77, 77, 14, 2, 64, True), (1, 100, 300, 4, 4, 16, True),
-    (1, 300, 100, 2, 1, 256, True), (4, 512, 512, 40, 10, 128, True)])
+    (1, 300, 100, 2, 1, 256, True), (4, 512, 512, 40, 10, 128, True),
+    (2, 200, 333, 8, 2, 64, False), (2, 333, 77, 8, 2, 128, False)])
 def test_flash_attention_matches_plain(cuda, dtype, B, Sq, Sk, H, Hkv, hd,
                                        causal):
     from repro_torch.kernels import flash_attention, ops, ref
@@ -170,20 +171,117 @@ def test_decode_attention_matches_plain(cuda, dtype, B, S, H, Hkv, hd,
     assert torch.equal(out, again)
 
 
+@pytest.mark.parametrize("fill", [1e6, float("nan")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_attention_ignores_future_positions(cuda, dtype):
+def test_decode_attention_ignores_future_positions(cuda, dtype, fill):
+    """Garbage (±1e6) or NaN in every cache position past cur_len leaves
+    the output's bits as they were: the kernel never reads there (its
+    tensor maps end at cur_len + 1)."""
     from repro_torch.kernels import ops
 
     q = _randn((4, 40, 128), 8, dtype, cuda)
     k = _randn((4, 544, 10, 128), 9, dtype, cuda)
     v = _randn((4, 544, 10, 128), 10, dtype, cuda)
-    cur = 271
-    out1 = ops.decode_attention(q, k, v, cur)
-    k[:, cur + 1:] = 1e6
-    v[:, cur + 1:] = -1e6
-    out2 = ops.decode_attention(q, k, v, cur)
+    for cur in (0, 127, 128, 271):
+        out1 = ops.decode_attention(q, k, v, cur)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, cur + 1:] = fill
+        v2[:, cur + 1:] = -fill
+        out2 = ops.decode_attention(q, k2, v2, cur)
+        torch.cuda.synchronize()
+        assert torch.equal(out1, out2), cur
+
+
+# the wgmma/TMA variant of B3: ragged and exact q tiles, GQA groups, both
+# head dims it takes
+@pytest.mark.parametrize("g", [1, 4, 7, 12])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("Sq", [1, 127, 128, 129, 1000])
+def test_flash_wgmma_matches_plain(cuda, Sq, hd, g):
+    from repro_torch.kernels import flash_attention, ops, ref
+
+    B, Hkv = 2, 2
+    q = _randn((B, Sq, g * Hkv, hd), 11, torch.bfloat16, cuda)
+    k = _randn((B, Sq, Hkv, hd), 12, torch.bfloat16, cuda)
+    v = _randn((B, Sq, Hkv, hd), 13, torch.bfloat16, cuda)
+    before = flash_attention.launches["flash_wgmma"]
+    out = ops.flash_attention(q, k, v, causal=True)
+    again = ops.flash_attention(q, k, v, causal=True)
+    want = ref.mha_ref(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert torch.equal(out1, out2)
+    assert flash_attention.launches["flash_wgmma"] == before + 2
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, again)
+
+
+def test_flash_serving_shape_takes_wgmma(cuda):
+    """The serving path's contiguous (4, 512, 40/10, 128) bf16 call is
+    counted as the wgmma variant, beside the total."""
+    from repro_torch.kernels import flash_attention
+
+    q = _randn((4, 512, 40, 128), 17, torch.bfloat16, cuda)
+    k = _randn((4, 512, 10, 128), 18, torch.bfloat16, cuda)
+    v = _randn((4, 512, 10, 128), 19, torch.bfloat16, cuda)
+    before = dict(flash_attention.launches)
+    flash_attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    after = flash_attention.launches
+    assert {n: after[n] - before[n] for n in after} == {
+        "flash_attention": 1, "flash_wgmma": 1, "flash_mma": 0,
+        "flash_fp32": 0}
+
+
+def test_flash_unaligned_view_takes_mma(cuda):
+    """A view whose row stride is not a multiple of 8 elements is not
+    TMA-able: the rule sends it to the mma.sync variant, which agrees
+    with the plain version."""
+    from repro_torch.kernels import flash_attention, ops, ref
+
+    buf = _randn((2, 100, 8 * 64 + 4), 20, torch.bfloat16, cuda)
+    heads = buf[..., :8 * 64].unflatten(-1, (8, 64))
+    q, k, v = heads[:, :, :4], heads[:, :, 4:6], heads[:, :, 6:]
+    before = flash_attention.launches["flash_mma"]
+    out = ops.flash_attention(q, k, v)
+    want = ref.mha_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["flash_mma"] == before + 1
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _decode_chunk(B, S, Hkv):
+    from repro_torch.kernels import decode_attention
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return decode_attention.split_plan(B * Hkv, S, sms)[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 4, 7, 12, 16])
+@pytest.mark.parametrize("where", ["zero", "chunk-1", "chunk", "end"])
+def test_decode_ring_matches_plain(cuda, where, g, hd, dtype):
+    """cur_len at the first position, on both sides of a chunk (and ring
+    stage) boundary, and at the end of the cache."""
+    from repro_torch.kernels import decode_attention, ops, ref
+
+    B, S, Hkv = 2, 300, 2
+    chunk = _decode_chunk(B, S, Hkv)
+    cur = {"zero": 0, "chunk-1": chunk - 1, "chunk": chunk,
+           "end": S - 1}[where]
+    q = _randn((B, g * Hkv, hd), 21, dtype, cuda)
+    k = _randn((B, S, Hkv, hd), 22, dtype, cuda)
+    v = _randn((B, S, Hkv, hd), 23, dtype, cuda)
+    before = decode_attention.launches["decode_attention"]
+    out = ops.decode_attention(q, k, v, cur)
+    again = ops.decode_attention(q, k, v, cur)
+    want = ref.decode_attn_ref(q, k, v, cur)
+    torch.cuda.synchronize()
+    assert decode_attention.launches["decode_attention"] == before + 2
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, again)
 
 
 def test_real_server_on_card_matches_cpu(cuda):

@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Device time of the port's attention kernels (B3 prefill, B4 decode) at
+the shapes of ``chip_smoke.py``'s phase 6, beside one PyTorch call for the
+same function (``scaled_dot_product_attention``), on one NVIDIA GPU.
+
+    python3 tools/profile_torch_attention.py                  # this tree
+    python3 tools/profile_torch_attention.py --src OTHER/src --label old
+
+``--src`` points at the ``src`` directory of another checkout of the repo
+(for example a ``git archive`` of a parent commit unpacked under a
+directory ``.gitignore`` lists), so two versions of the kernels can be
+timed in turns inside one process tree on one card: old, new, new, old.
+Each run prints one JSON line: the card, its power limit, and per case the
+kernel's median device time per call (CUDA events, the stream held by a
+sleep kernel while the host enqueues) and SDPA's.
+
+Decode is timed warm (one (q, k, v) set, whose 11 MB cache stays in the
+50 MB L2 across calls) and cold (calls rotate over 10 sets, 111 MB, so
+each call finds its cache in HBM, as every layer of a decode step does),
+each call both launched directly and replayed from a CUDA graph of it.
+SDPA's decode call (a masked product with a few kernels) is timed from its
+graph only, so the host's gaps between its kernels stay out of the time.
+"""
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from chip_smoke import device_ms, graph_ms  # noqa: E402  (CUDA-event timers)
+
+FLASH_CASES = [(4, 512, 40, 10, 128), (4, 2048, 40, 10, 128),
+               (4, 1000, 40, 10, 128), (4, 512, 14, 2, 64)]
+DECODE_SHAPE = (4, 544, 40, 10, 128)  # B, S_max, H, Hkv, hd (phi3 serving)
+COLD_SETS = 10
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src directory whose repro_torch is timed")
+    ap.add_argument("--label", default="this tree")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.src).resolve()))  # ahead of chip_smoke's src
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, flash_attention
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU (CUDA is not available)")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda")
+
+    def randn(shape, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    res = {"label": args.label, "src": args.src, "card": smi,
+           "flash": [], "decode": []}
+    for i, (B, S, H, Hkv, hd) in enumerate(FLASH_CASES):
+        qkv = [(randn((B, S, H, hd), 3 * i), randn((B, S, Hkv, hd), 3 * i + 1),
+                randn((B, S, Hkv, hd), 3 * i + 2))]
+        n = 20 if S > 1000 else 60
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+
+        before = dict(flash_attention.launches)
+        ms = device_ms(flash_attention.flash_attention, qkv, n, 500_000_000)[0]
+        ran = [k for k, c in flash_attention.launches.items()
+               if k != "flash_attention" and c > before.get(k, 0)]
+        res["flash"].append(dict(shape=[B, S, H, Hkv, hd], ms=ms,
+                                 sdpa_ms=device_ms(sdpa, qkv, n, 500_000_000)[0],
+                                 variant=ran))
+        del qkv
+    B, S, H, Hkv, hd = DECODE_SHAPE
+    sets = [(randn((B, H, hd), 100 + j), randn((B, S, Hkv, hd), 200 + j),
+             randn((B, S, Hkv, hd), 300 + j)) for j in range(COLD_SETS)]
+    for cur in (271, 543):
+        mask = (torch.arange(S, device=dev) <= cur)[None, None, None, :]
+
+        def sdpa(q, k, v, mask=mask):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+        def kern(q, k, v, cur=cur):
+            return decode_attention.decode_attention(q, k, v, cur)
+
+        row = dict(shape=[B, S, H, Hkv, hd], cur_len=cur)
+        for temp, group in (("warm", sets[:1]), ("cold", sets)):
+            row[temp + "_ms"] = device_ms(kern, group, 400, 1_000_000_000)[0]
+            row[temp + "_graph_ms"] = graph_ms(kern, group, 400, 1_000_000_000)[0]
+            row[temp + "_sdpa_ms"] = graph_ms(sdpa, group, 400, 1_000_000_000)[0]
+        res["decode"].append(row)
+    print(json.dumps(res))
+
+
+if __name__ == "__main__":
+    main()
