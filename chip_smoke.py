@@ -29,9 +29,12 @@ line is printed only when every phase passed):
   6 the attention kernels vs their plain versions on the card: prefill
     (B=4, S in {512, 2048}, 40 heads over 10 kv heads, hd=128, bf16 and
     f32, causal; a ragged S=1000; internvl2's 14-over-2 heads at hd=64;
-    gemma-7b's 16-over-16 heads at hd=256), each with the B3 variant it
-    ran (flash_wgmma, flash_mma or flash_fp32), and decode (B=4,
-    S_max=544, cur_len in {0, 271, 543}, garbage and NaN past cur_len);
+    gemma-7b's 16-over-16 heads at hd=256, S in {512, 2048}, and once
+    through views of a fused projection whose row stride TMA cannot
+    take), each with the B3 variant it ran (flash_wgmma, flash_wgmma256,
+    flash_mma or flash_fp32), and decode (B=4, S_max=544, cur_len in {0,
+    271, 543}, garbage and NaN past cur_len; gemma-7b's 16/16 heads at
+    hd=256, cur_len 543);
     per-launch device time, the plain version's time, the time of torch's
     scaled_dot_product_attention on the same inputs (a yardstick only: the
     port never calls it) and the bound; decode timed with a cold L2 (10
@@ -46,14 +49,18 @@ line is printed only when every phase passed):
   8 the same entry point on the card and on the CPU: phi3's widths cut to
     2 layers, float32, one set of weights; equal tokens, close logits; the
     card's prefill on flash_fp32
-  9 RealServer at gemma-7b's widths (hd 256) cut to 2 layers, bf16: its
-    prefill on flash_mma, its decode on B4 at hd 256; finite logits
+  9 the serving path at gemma-7b's full width: RealServer on gemma-7b (28
+    layers, d_model 3072, 16 heads over 16 kv heads at hd 256, GeGLU,
+    bf16, random weights from seed 0), the same pool and traffic as
+    phase 7; every logit finite, all 28 prefill launches on
+    flash_wgmma256, B4 launched 28 x (512 + 32) times
 
 The pool's clock is simulated and priced by the JAX package's V5E model;
 no latency from that clock is printed. Every time printed here is a host
 wall clock or a CUDA-event time measured on the card in this run.
 """
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -80,6 +87,8 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:21"),
     "flash_wgmma": ("src/repro_torch/csrc/attention.cu",
                     "src/repro/kernels/flash_attention.py:21"),
+    "flash_wgmma256": ("src/repro_torch/csrc/attention.cu",
+                       "src/repro/kernels/flash_attention.py:21"),
     "flash_mma": ("src/repro_torch/csrc/attention.cu",
                   "src/repro/kernels/flash_attention.py:21"),
     "flash_fp32": ("src/repro_torch/csrc/attention.cu",
@@ -329,9 +338,9 @@ def phase_attention():
     another order than the plain version; bf16 2e-2, tests/test_kernels.py's
     (the output rounds to bf16). Two runs must give the same bits. Each
     prefill case records the B3 variant it ran; decode is timed warm (one
-    (q, k, v) set, its 11 MB cache held in the 50 MB L2 across calls) and
-    cold (calls rotate over 10 sets, 111 MB, as the 40 layers of a decode
-    step find their caches)."""
+    (q, k, v) set, its cache of 11 MB (phi3) or 36 MB (gemma-7b) held in
+    the 50 MB L2 across calls) and cold (calls rotate over 10 sets, 111 MB
+    or 357 MB, as the layers of a decode step find their caches)."""
     import torch
     import torch.nn.functional as F
 
@@ -346,16 +355,29 @@ def phase_attention():
 
     res = {"flash_attention": {"max_abs_err": 0.0, "cases": []},
            "decode_attention": {"max_abs_err": 0.0, "cases": []}}
-    # ---- B3: prefill flash attention, causal
-    flash_cases = [(4, S, 40, 10, 128, dt) for S in (512, 2048)
+    for mod in (flash_attention, decode_attention):
+        mod.reset_launches()
+    # ---- B3: prefill flash attention, causal. A case is (B, S, H, Hkv,
+    # hd, dtype, view); a view case reads q, k and v out of one fused
+    # projection whose row stride ((H + 2 Hkv) hd + 4 elements) is no
+    # multiple of 8, which TMA cannot take: the flash_mma variant's case
+    flash_cases = [(4, S, 40, 10, 128, dt, False) for S in (512, 2048)
                    for dt in (torch.bfloat16, torch.float32)]
-    flash_cases += [(4, 1000, 40, 10, 128, torch.bfloat16),
-                    (4, 512, 14, 2, 64, torch.bfloat16),
-                    (4, 512, 16, 16, 256, torch.bfloat16)]  # gemma-7b's heads
-    for i, (B, S, H, Hkv, hd, dt) in enumerate(flash_cases):
-        q = randn((B, S, H, hd), 3 * i, dt)
-        k = randn((B, S, Hkv, hd), 3 * i + 1, dt)
-        v = randn((B, S, Hkv, hd), 3 * i + 2, dt)
+    flash_cases += [(4, 1000, 40, 10, 128, torch.bfloat16, False),
+                    (4, 512, 14, 2, 64, torch.bfloat16, False)]
+    flash_cases += [(4, S, 16, 16, 256, torch.bfloat16, view)  # gemma-7b's heads
+                    for S, view in ((512, False), (2048, False), (512, True))]
+    for i, (B, S, H, Hkv, hd, dt, view) in enumerate(flash_cases):
+        if view:
+            width = (H + 2 * Hkv) * hd
+            heads = randn((B, S, width + 4), 3 * i, dt)[..., :width].unflatten(
+                -1, (H + 2 * Hkv, hd))
+            q, k, v = heads[:, :, :H], heads[:, :, H:H + Hkv], heads[:, :, H + Hkv:]
+        else:
+            q = randn((B, S, H, hd), 3 * i, dt)
+            k = randn((B, S, Hkv, hd), 3 * i + 1, dt)
+            v = randn((B, S, Hkv, hd), 3 * i + 2, dt)
+        label = (B, S, H, Hkv, hd, dt) + (("view",) if view else ())
         before = dict(flash_attention.launches)
         out = flash_attention.flash_attention(q, k, v, causal=True)
         again = flash_attention.flash_attention(q, k, v, causal=True)
@@ -364,11 +386,11 @@ def phase_attention():
         want = ref.mha_ref(q, k, v, causal=True)
         torch.cuda.synchronize()
         check(len(ran) == 1 and ran[0] == flash_attention.variant_of(q, k, v),
-              f"flash_attention {(B, S, H, Hkv, hd, dt)} ran {ran}")
+              f"flash_attention {label} ran {ran}")
         err, ok = close(out, want, tol[dt])
-        check(ok, f"flash_attention {(B, S, H, Hkv, hd, dt)}: max |kernel - "
-                  f"plain| {err} above {tol[dt]}")
-        check(torch.equal(out, again), "flash_attention: two runs differ")
+        check(ok, f"flash_attention {label}: max |kernel - plain| {err} "
+                  f"above {tol[dt]}")
+        check(torch.equal(out, again), f"flash_attention {label}: two runs differ")
 
         def sdpa(q, k, v):
             return F.scaled_dot_product_attention(
@@ -389,15 +411,20 @@ def phase_attention():
         res["flash_attention"]["max_abs_err"] = max(
             res["flash_attention"]["max_abs_err"], err)
         res["flash_attention"]["cases"].append(dict(
-            shape=(B, S, H, Hkv, hd), dtype=str(dt).split(".")[-1],
+            shape=(B, S, H, Hkv, hd) + (("view",) if view else ()),
+            dtype=str(dt).split(".")[-1],
             variant=ran[0], max_abs_err=err, ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms, library_err=lib_err, bound_ms=bound,
             bound_by=by))
         del q, k, v, out, again, want
-    # ---- B4: decode attention over the serving cache (S_max = 512 + 32)
-    B, S, H, Hkv, hd = 4, 544, 40, 10, 128
+    # ---- B4: decode attention over the serving caches (S_max = 512 + 32):
+    # phi3's 40/10 heads at hd 128 (bf16 and f32, cur_len 0, 271, 543),
+    # then gemma-7b's 16/16 at hd 256 (bf16, the longest step)
     hold = 1_000_000_000  # ~0.5 s: covers the host's enqueue of 200 replays
-    for j, dt in enumerate((torch.bfloat16, torch.float32)):
+    decode_cases = [((4, 544, 40, 10, 128), dt, (0, 271, 543))
+                    for dt in (torch.bfloat16, torch.float32)]
+    decode_cases.append(((4, 544, 16, 16, 256), torch.bfloat16, (543,)))
+    for j, ((B, S, H, Hkv, hd), dt, curs) in enumerate(decode_cases):
         q = randn((B, H, hd), 100 + j, dt)
         k = randn((B, S, Hkv, hd), 110 + j, dt)
         v = randn((B, S, Hkv, hd), 120 + j, dt)
@@ -405,14 +432,14 @@ def phase_attention():
             (randn((B, H, hd), 130 + c, dt), randn((B, S, Hkv, hd), 140 + c, dt),
              randn((B, S, Hkv, hd), 150 + c, dt)) for c in range(9)
         ] if dt == torch.bfloat16 else []
-        for cur in (0, 271, 543):
+        for cur in curs:
             out = decode_attention.decode_attention(q, k, v, cur)
             again = decode_attention.decode_attention(q, k, v, cur)
             want = ref.decode_attn_ref(q, k, v, cur)
             torch.cuda.synchronize()
             err, ok = close(out, want, tol[dt])
-            check(ok, f"decode_attention {dt} cur_len={cur}: max |kernel - "
-                      f"plain| {err} above {tol[dt]}")
+            check(ok, f"decode_attention {(B, S, H, Hkv, hd)} {dt} cur_len={cur}: "
+                      f"max |kernel - plain| {err} above {tol[dt]}")
             check(torch.equal(out, again), "decode_attention: two runs differ")
             res["decode_attention"]["max_abs_err"] = max(
                 res["decode_attention"]["max_abs_err"], err)
@@ -453,11 +480,17 @@ def phase_attention():
                 dtype=str(dt).split(".")[-1], max_abs_err=err, **times,
                 library_err=lib_err, bound_ms=bound, bound_by=by))
         del q, k, v, cold
+    # every launch of phase 6, the timing loops' included: flash_mma is on
+    # no served path (every served config's prefill is TMA-aligned), so its
+    # launches in the kernels line are these
+    res["launches"] = {**flash_attention.launches, **decode_attention.launches}
     return res
 
 
-def phase_serve():
-    """Phase 7: RealServer at phi3-medium-14b's full width on the card."""
+def phase_serve(arch, variant):
+    """Phases 7 and 9: RealServer at ``arch``'s full width on the card, 4
+    requests of 512 prompt tokens and 32 new ones; every prefill launch of
+    B3 must be on ``variant``."""
     import numpy as np
     import torch
 
@@ -466,7 +499,7 @@ def phase_serve():
     from repro_torch.kernels import decode_attention, distance, flash_attention
     from repro_torch.launch.serve import RealServer
 
-    cfg = get_config("phi3-medium-14b")
+    cfg = get_config(arch)
     B, S, NEW = 4, 512, 32
     t0 = time.perf_counter()
     server = RealServer(cfg, VectorPoolConfig(**SERVE_POOL), rag_interval=8,
@@ -474,7 +507,8 @@ def phase_serve():
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in (server.params["embed"],
-                                       server.params["lm_head"]))
+                                       server.params.get("lm_head"))
+                   if t is not None)  # None: tied to the embedding
     n_params += sum(w.numel() for blk in server.params["blocks"]
                     for part in blk.values()
                     for w in (part.values() if isinstance(part, dict)
@@ -506,19 +540,20 @@ def phase_serve():
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "a generated token is out of the vocabulary")
     check(bool(finite["all"].item()) and finite["steps"] == 1 + S + NEW,
-          f"non-finite logits (or {finite['steps']} model calls)")
+          f"{arch}: non-finite logits (or {finite['steps']} model calls)")
     check(launches["flash_attention"] == cfg.num_layers
-          and launches["flash_wgmma"] == cfg.num_layers,
-          f"flash_attention launched {launches['flash_attention']} times "
-          f"({launches['flash_wgmma']} on flash_wgmma), not once per layer "
-          f"({cfg.num_layers}) on the wgmma variant")
+          and launches[variant] == cfg.num_layers,
+          f"{arch}: flash_attention launched {launches['flash_attention']} "
+          f"times ({launches[variant]} on {variant}), not once per layer "
+          f"({cfg.num_layers}) on {variant}")
     check(launches["decode_attention"] == cfg.num_layers * (S + NEW),
-          f"decode_attention launched {launches['decode_attention']} times, "
-          f"not {cfg.num_layers * (S + NEW)}")
+          f"{arch}: decode_attention launched {launches['decode_attention']} "
+          f"times, not {cfg.num_layers * (S + NEW)}")
     check(launches["distance_slot_gather"] >= B,
-          f"distance_slot_gather launched {launches['distance_slot_gather']}"
-          " times on the serving path")
-    del server
+          f"{arch}: distance_slot_gather launched "
+          f"{launches['distance_slot_gather']} times on the serving path")
+    del server, prefill, decode, watched
+    gc.collect()  # the watched calls and the server refer to each other
     torch.cuda.empty_cache()
     return dict(cfg=cfg, init_s=init_s, params=n_params, toks=toks,
                 stats=stats, launches=launches, peak_gib=peak_gib,
@@ -575,55 +610,6 @@ def phase_card_vs_cpu():
     torch.cuda.empty_cache()
     return dict(toks=toks_card, logit_err=err, setup_s=setup_s,
                 card_s=card_s, cpu_s=cpu_s, launches=launches)
-
-
-def phase_gemma():
-    """Phase 9: RealServer at gemma-7b's widths (hd 256, 16 heads over 16
-    kv heads, bf16) cut to 2 layers: the served config whose prefill takes
-    the mma.sync variant of B3 and whose decode takes B4 at hd 256."""
-    import numpy as np
-    import torch
-
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import VectorPoolConfig
-    from repro_torch.kernels import decode_attention, flash_attention
-    from repro_torch.launch.serve import RealServer
-
-    cfg = dataclasses.replace(get_config("gemma-7b"), num_layers=2)
-    B, S, NEW = 4, 256, 8
-    server = RealServer(cfg, VectorPoolConfig(**SERVE_POOL), rag_interval=8,
-                        seed=0, device="cuda")
-    prompts = np.random.default_rng(2).integers(
-        0, cfg.vocab_size, size=(B, S)).astype(np.int32)
-    finite = torch.ones((), dtype=torch.bool, device="cuda")
-    prefill = server._prefill
-
-    def watched(*a):
-        nonlocal finite
-        lg, caches = prefill(*a)
-        finite = finite & torch.isfinite(lg).all()
-        return lg, caches
-
-    server._prefill = watched
-    for mod in (flash_attention, decode_attention):
-        mod.reset_launches()
-    t0 = time.perf_counter()
-    toks, _ = server.generate(prompts, max_new=NEW)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {**flash_attention.launches, **decode_attention.launches}
-    check(toks.shape == (B, NEW) and bool(((toks >= 0)
-                                           & (toks < cfg.vocab_size)).all()),
-          "gemma-7b (2 layers): tokens out of shape or vocabulary")
-    check(bool(finite.item()), "gemma-7b (2 layers): non-finite prefill logits")
-    check(launches["flash_mma"] == cfg.num_layers
-          and launches["flash_attention"] == cfg.num_layers,
-          f"gemma-7b prefill ran {launches}, not flash_mma once per layer")
-    check(launches["decode_attention"] == cfg.num_layers * (S + NEW),
-          f"gemma-7b decode launched {launches['decode_attention']} times")
-    del server
-    torch.cuda.empty_cache()
-    return dict(cfg=cfg, launches=launches, wall=wall, toks=toks)
 
 
 def main():
@@ -771,18 +757,21 @@ def main():
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 7: the serving path at full width ---------------------------
+    def serve_line(phase, srv, t0):
+        st = srv["stats"]
+        return (f"phase {phase} serve {srv['cfg'].name}: {srv['params'] / 1e9:.3f}e9 "
+                f"weights (bf16) made on the card in {srv['init_s']:.1f} s | 4 "
+                f"requests x 512 prompt + 32 new tokens: ttft_s={st['ttft_s']:.3f} "
+                f"decode_s={st['decode_s']:.3f} ({srv['tok_per_s']:.2f} decoded "
+                f"tokens per wall-second), rag_probes={st['rag_probes']}, "
+                f"stalls={st['stalls']}, peak allocated {srv['peak_gib']:.2f} GiB, "
+                f"launches {srv['launches']} | first request's tokens "
+                f"{srv['toks'][0].tolist()} | {smi} | "
+                f"{time.perf_counter() - t0:.1f} s")
+
     t0 = time.perf_counter()
-    srv = phase_serve()
-    st = srv["stats"]
-    print(f"phase 7 serve {srv['cfg'].name}: {srv['params'] / 1e9:.3f}e9 "
-          f"weights (bf16) made on the card in {srv['init_s']:.1f} s | 4 "
-          f"requests x 512 prompt + 32 new tokens: ttft_s={st['ttft_s']:.3f} "
-          f"decode_s={st['decode_s']:.3f} ({srv['tok_per_s']:.2f} decoded "
-          f"tokens per wall-second), rag_probes={st['rag_probes']}, "
-          f"stalls={st['stalls']}, peak allocated {srv['peak_gib']:.2f} GiB, "
-          f"launches {srv['launches']} | first request's tokens "
-          f"{srv['toks'][0].tolist()} | {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    srv = phase_serve("phi3-medium-14b", "flash_wgmma")  # frees its weights
+    print(serve_line(7, srv, t0), flush=True)
 
     # ---- phase 8: card vs CPU through the same entry point -----------------
     t0 = time.perf_counter()
@@ -794,34 +783,36 @@ def main():
           f" s, on the CPU {cmp_['cpu_s']:.1f} s | "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- phase 9: gemma-7b's widths, the mma.sync variant's served path ------
+    # ---- phase 9: gemma-7b at full width, the hd-256 wgmma variant's path ---
     t0 = time.perf_counter()
-    gem = phase_gemma()
-    print(f"phase 9 serve {gem['cfg'].name} widths, 2 layers, bf16: 4 requests "
-          f"x 256 prompt + 8 new tokens in {gem['wall']:.2f} s, launches "
-          f"{gem['launches']} | first request's tokens {gem['toks'][0].tolist()}"
-          f" | {time.perf_counter() - t0:.1f} s", flush=True)
+    gem = phase_serve("gemma-7b", "flash_wgmma256")
+    print(serve_line(9, gem, t0), flush=True)
 
     # launches on each kernel's path: B1/B2 on the pool (phases 3, 4); B3's
     # total, its wgmma variant and B4 on phi3's serving path (phase 7); the
-    # f32 variant on phase 8's float32 server; the mma.sync variant on
-    # gemma-7b's (phase 9)
+    # f32 variant on phase 8's float32 server; the hd-256 wgmma variant on
+    # gemma-7b's (phase 9), which also gives B4's launches at hd 256; the
+    # mma.sync variant on no served path, so its count is phase 6's
     launches.update({n: srv["launches"][n] for n in
                      ("flash_attention", "flash_wgmma", "decode_attention")})
     launches.update(flash_fp32=cmp_["launches"]["flash_fp32"],
-                    flash_mma=gem["launches"]["flash_mma"])
+                    flash_wgmma256=gem["launches"]["flash_wgmma256"],
+                    flash_mma=ares["launches"]["flash_mma"])
     # each variant's numbers at its phase-6 case: the serving shape (prefill
     # B=4, S=512, bf16) for the total and wgmma, the same shape in f32,
-    # gemma-7b's heads (hd 256) for mma.sync; decode at the longest step
-    # (cur_len = 543), bf16, cold L2 as the main figure
+    # gemma-7b's heads (hd 256, S=512) for wgmma256 and, read through the
+    # unaligned view, for mma.sync; decode at the longest step (cur_len =
+    # 543), bf16, cold L2 as the main figure: phi3's, with gemma-7b's beside
     cases = fr["cases"]
     by_variant = {c["variant"]: c for c in reversed(cases)}
     var_err = {v: max(c["max_abs_err"] for c in cases if c["variant"] == v)
                for v in by_variant}
+    dec = {c["shape"][2]: c for c in dr["cases"] if c["cur_len"] == 543}
     main_case = {"flash_attention": cases[0], "flash_wgmma": cases[0],
+                 "flash_wgmma256": by_variant["flash_wgmma256"],
                  "flash_fp32": by_variant["flash_fp32"],
                  "flash_mma": by_variant["flash_mma"],
-                 "decode_attention": dr["cases"][-1]}
+                 "decode_attention": dec[40]}
     line = []
     for name, (source, replaces) in KERNELS.items():
         r = kres.get(name) or main_case[name]
@@ -836,6 +827,13 @@ def main():
             "library_ms": r.get("library_ms")}
         if "warm_ms" in r:
             entry["warm_ms"] = r["warm_ms"]
+        if name == "decode_attention":
+            g = dec[16]
+            entry["gemma_7b"] = {
+                "shape": g["shape"], "launches": gem["launches"]["decode_attention"],
+                "max_abs_err": g["max_abs_err"], "ms": g["ms"], "warm_ms": g["warm_ms"],
+                "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+                "bound_by": g["bound_by"], "library_ms": g["library_ms"]}
         line.append(entry)
     print(f"all phases took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)

@@ -7,12 +7,14 @@
 //     reads kv head h / (H / Hkv) (GQA); scale 1/sqrt(hd); online softmax
 //     with m, l and the output accumulator in f32; causal mask qpos >= kpos
 //     over row indices; output (B, Sq, H, hd) in q's type. One launch of
-//     one of three variants, chosen by flash_variant (the same rule as
+//     one of four variants, chosen by flash_variant (the same rule as
 //     kernels/flash_attention.py::flash_variant):
-//       flash_wgmma_kernel  bf16, hd 64 or 128, 16-byte aligned bases and
-//                           strides (every contiguous or fused projection)
-//       flash_mma_kernel    any other bf16 (hd 16, 32, 256; odd strides)
-//       flash_kernel        f32, on the fp32 cores
+//       flash_wgmma_kernel     bf16, hd 64 or 128, 16-byte aligned bases
+//                              and strides (every contiguous or fused
+//                              projection)
+//       flash_wgmma256_kernel  bf16, hd 256, the same alignment
+//       flash_mma_kernel       any other bf16 (hd 16, 32; odd strides)
+//       flash_kernel           f32, on the fp32 cores
 //
 //   decode_attention — replaces the TPU kernel
 //     src/repro/kernels/decode_attention.py::_decode_kernel
@@ -56,11 +58,20 @@
 // slower with two K/V stages), the diagonal tile is computed whole for
 // the warpgroup that needs half of it, and each K/V tile is read from L2
 // by each of the g heads' blocks (no cluster multicast).
+// flash_wgmma256_kernel is the same design at hd 256, where a 64-row
+// warpgroup's O accumulator is 128 registers a thread and a 128-row Q tile
+// 64 KB: a producer warpgroup hands its registers to the two consumer
+// warpgroups (setmaxnreg), Q has one buffer, K/V come in 64-row tiles
+// through a 2-stage ring with separate K and V barriers, S is m64n64k16
+// and P V m64n256k16; warpgroup 0 skips the tile past its diagonal. Its
+// items go (b, kv head) by (b, kv head), so the K/V of the few heads in
+// flight stay in L2 (at S = 2048 all of them would not): with the heads
+// fastest it was bound by moving K/V tiles, not by its products (PERF.md).
 // flash_mma_kernel: mma.sync m16n8k16 with ldmatrix fragments from
 // padded rows, 16 q rows a warp, no copy/compute overlap. flash_kernel (f32)
 // runs on the fp32 cores (TF32 would not hold float32's precision):
 // register-tiled S = Q K^T, P V reading P as float4.
-// Common to all three: any Sq, Sk (the TPU version halved its block until
+// Common to all four: any Sq, Sk (the TPU version halved its block until
 // it divided S); q, k, v read in place through their strides; no atomics,
 // so repeated runs give the same bits.
 //
@@ -755,6 +766,30 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64, f32) += A (64 x 16, smem desc) * B (64 x 16, smem desc);
+// scale_d = 0 overwrites d. Both operands K-major, 128-byte swizzled.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 256, f32) += A (64 x 16, bf16 registers) * B (16 x 256, smem
+// desc, N-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // O += P V at N = hd columns
 template <int N> struct Wgmma;
 template <> struct Wgmma<64> {
@@ -1013,6 +1048,299 @@ __global__ void __launch_bounds__(WgTile<HD>::THREADS, 1) flash_wgmma_kernel(
   if (wg == 0) named_sync(1, F::CONSUMERS);  // warpgroup 1's last opening
 }
 
+// ---- bf16 at hd 256 on wgmma: a producer warpgroup, setmaxnreg ----
+//
+// The O accumulator of a 64-row warpgroup at hd 256 is 128 registers a
+// thread, and one 128-row Q tile is 64 KB of shared memory, so
+// flash_wgmma_kernel's layout (a producer warp, two Q buffers, 128-row K/V
+// tiles) does not fit either budget. Here a whole producer warpgroup gives
+// its registers back (setmaxnreg.dec) and the two consumer warpgroups take
+// them (setmaxnreg.inc: 232 a thread, where 384 threads would have 168), Q
+// has one buffer, and K/V come in 64-row tiles through a ring of 2 stages
+// (64 KB + 2 x 2 x 32 KB = 192 KB). K and V of a stage have barriers of
+// their own, so S = Q K^T starts as soon as K has landed and the producer
+// refills K while P V still reads V.
+
+struct Wg256Tile {
+  static constexpr int HD = 256;
+  static constexpr int BQ = 128;  // q rows a work item: 64 a consumer warpgroup
+  static constexpr int BK = 64;   // kv rows a tile
+  static constexpr int NBOX = HD / 64;  // 128-byte (64-column) boxes a row
+  static constexpr int NST = 2;         // K/V ring stages
+  static constexpr int BOX_Q = BQ * 128, BOX_K = BK * 128;  // bytes a box
+  static constexpr int Q_BYTES = NBOX * BOX_Q;   // the one Q buffer
+  static constexpr int KV_BYTES = NBOX * BOX_K;  // K or V, one stage
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + NST * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + NST * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + (2 + 4 * NST) * 8 + 1024;  // + alignment
+  static constexpr int CONSUMERS = 256;            // two warpgroups
+  static constexpr int THREADS = CONSUMERS + 128;  // + one producer warpgroup
+  // registers a thread after setmaxnreg; the two moves balance (128 x 128
+  // given back, 256 x 64 taken), as a CTA can take only what its own warps
+  // give back
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static constexpr int LAUNCH_REGS = 168;  // 65536 / 384, rounded down to 8
+  static_assert(128 * (LAUNCH_REGS - PRODUCER_REGS) ==
+                    CONSUMERS * (CONSUMER_REGS - LAUNCH_REGS), "register moves");
+  static_assert(BQ == 2 * BK, "the diagonal is one whole tile a warpgroup");
+  static_assert(BYTES <= 232448, "shared memory");
+};
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Work item i of the hd-256 kernel -> (q tile, head, batch row): the
+// (batch row, kv head) pairs one after the other, and inside one the q
+// tiles longest-first under the causal mask with the g query heads of the
+// kv head fastest. The items a round of blocks takes at once then read the
+// K and V of a few kv heads, which stay in the L2 while all their q tiles
+// run (at gemma-7b's B = 4, S = 2048 the K and V of all 64 (b, kv head)
+// pairs, 134 MB, would not fit its 50 MB); with the back-and-forth walk of
+// wg_item_index the long and short q tiles of a pair land on the same
+// blocks and even out.
+template <int BQ, int BK>
+__device__ __forceinline__ WgItem wg256_item(int i, int n_qt, int H, int Sk, int causal,
+                                             int group) {
+  const int Hkv = H / group, per = n_qt * group;  // items of one (b, kv head)
+  const int kv = i / per, j = i % per, pos = j / group;
+  WgItem w;
+  w.q0 = (causal ? n_qt - 1 - pos : pos) * BQ;
+  w.h = (kv % Hkv) * group + j % group;
+  w.b = kv / Hkv;
+  const int kv_end = causal ? min(Sk, w.q0 + BQ) : Sk;
+  w.n_tiles = (kv_end + BK - 1) / BK;
+  return w;
+}
+
+// Persistent, as flash_wgmma_kernel: each block walks its work items
+// (wg_item_index, in wg256_item's order), and the two consumer warpgroups
+// take turns at their S products (named barriers 1, 2). Under the causal
+// mask warpgroup 0's rows end where the item's last tile begins, so that
+// tile is all masked for it: warpgroup 0 keeps its turn there and frees the
+// stage without computing.
+__global__ void __launch_bounds__(Wg256Tile::THREADS, 1) flash_wgmma256_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int B,
+    int Sq, int Sk, int H, int group, int causal, float scale_log2) {
+  using F = Wg256Tile;
+  extern __shared__ __align__(1024) unsigned char smem_wg256[];
+  unsigned char* base = align1024(smem_wg256);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + F::BAR_OFF);
+  uint64_t* q_empty = q_full + 1;      // both warpgroups are done with Q
+  uint64_t* k_full = q_full + 2;       // [NST] a stage's K has landed
+  uint64_t* v_full = k_full + F::NST;  // [NST] its V has landed
+  uint64_t* k_empty = v_full + F::NST;  // [NST] both warpgroups are done with K
+  uint64_t* v_empty = k_empty + F::NST;  // [NST] .. with V
+
+  const int n_qt = (Sq + F::BQ - 1) / F::BQ;
+  const int n_items = n_qt * H * B;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, F::CONSUMERS);
+    for (int s = 0; s < F::NST; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, F::CONSUMERS);
+      mbar_init(v_empty + s, F::CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the role by warpgroup, through a shuffle so the compiler sees it as
+  // warp-uniform: warpgroup 2 produces, 0 and 1 consume
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == 2) {
+    setmaxnreg_dec<F::PRODUCER_REGS>();
+    // producer: one thread keeps Q and the ring full
+    if (tid == F::CONSUMERS) {
+      int n = 0;  // K/V tiles issued so far, over all items
+      for (int it = 0, i; (i = wg_item_index(it)) < n_items; ++it) {
+        const WgItem w = wg256_item<F::BQ, F::BK>(i, n_qt, H, Sk, causal, group);
+        const int hk = w.h / group;
+        if (it > 0) mbar_wait(q_empty, (it - 1) & 1);
+        mbar_expect_tx(q_full, F::Q_BYTES);
+        for (int x = 0; x < F::NBOX; ++x)
+          tma_load_4d(base + x * F::BOX_Q, &qmap, q_full, 64 * x, w.h, w.q0, w.b);
+        for (int j = 0; j < w.n_tiles; ++j, ++n) {
+          const int s = n % F::NST;
+          const uint32_t freed = ((n / F::NST) + 1) & 1;
+          unsigned char* ks = base + F::K_OFF + s * F::KV_BYTES;
+          unsigned char* vs = base + F::V_OFF + s * F::KV_BYTES;
+          if (n >= F::NST) mbar_wait(k_empty + s, freed);
+          mbar_expect_tx(k_full + s, F::KV_BYTES);
+          for (int x = 0; x < F::NBOX; ++x)
+            tma_load_4d(ks + x * F::BOX_K, &kmap, k_full + s, 64 * x, hk, j * F::BK, w.b);
+          if (n >= F::NST) mbar_wait(v_empty + s, freed);
+          mbar_expect_tx(v_full + s, F::KV_BYTES);
+          for (int x = 0; x < F::NBOX; ++x)
+            tma_load_4d(vs + x * F::BOX_K, &vmap, v_full + s, 64 * x, hk, j * F::BK, w.b);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<F::CONSUMER_REGS>();
+
+  // consumers: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64); this
+  // thread's accumulator rows are row0 (elements 4t, 4t+1) and row0 + 8
+  // (4t+2, 4t+3), columns 8t + 2 (lane % 4) + {0, 1} of n-tile t
+  // wg is warp-uniform to the compiler, and so are the loop bounds that
+  // depend on it: the wgmmas inside stay unserialized
+  const int wg = role;
+  const int col_l = 2 * (tid % 4);
+  const uint32_t q_smem = smem_addr(base) + wg * 64 * 128;
+  int n = 0;  // K/V tiles consumed so far, over all items
+  if (wg == 1) named_arrive(1, F::CONSUMERS);  // warpgroup 0 goes first
+  for (int it = 0, i; (i = wg_item_index(it)) < n_items; ++it) {
+    const WgItem w = wg256_item<F::BQ, F::BK>(i, n_qt, H, Sk, causal, group);
+    // this thread's first row, 64 wg + 16 warp + lane / 4 into the item,
+    // from %tid.x read again for each item: kept across the item loop, it
+    // is the one value the register allocator would spill
+    uint32_t t;
+    asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+    const int row0 = w.q0 + static_cast<int>((t >> 5) * 16 + ((t & 31) >> 2));
+    const int own_end = causal ? min(Sk, w.q0 + 64 * wg + 64) : Sk;
+    const int n_own = (own_end + F::BK - 1) / F::BK;  // tiles this warpgroup computes
+
+    float acc[F::HD / 2];
+#pragma unroll
+    for (int x = 0; x < F::HD / 2; ++x) acc[x] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max, log2 domain (scaled)
+    float l[2] = {0.f, 0.f};              // this thread's part of the row sums
+
+    mbar_wait(q_full, it & 1);
+    for (int j = 0; j < n_own; ++j, ++n) {
+      const int s = n % F::NST, k0 = j * F::BK;
+      const uint32_t phase = (n / F::NST) & 1;
+      const uint32_t k_smem = smem_addr(base + F::K_OFF + s * F::KV_BYTES);
+      const uint32_t v_smem = smem_addr(base + F::V_OFF + s * F::KV_BYTES);
+      mbar_wait(k_full + s, phase);
+
+      // S = Q K^T: both K-major; a 16-wide k step is 32 bytes into a
+      // 128-byte swizzled row, and every 4 steps the next 64-column box
+      float sc[F::BK / 2];
+      named_sync(1 + wg, F::CONSUMERS);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < F::HD / 16; ++kk) {
+        const uint32_t koff = (kk % 4) * 32u;
+        wgmma_ss_n64(sc, desc_sw128(q_smem + (kk / 4) * F::BOX_Q + koff, 1, 64),
+                     desc_sw128(k_smem + (kk / 4) * F::BOX_K + koff, 1, 64), kk > 0);
+      }
+      wgmma_commit();
+      named_arrive(2 - wg, F::CONSUMERS);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(k_empty + s);
+      if (j == n_own - 1) mbar_arrive(q_empty);  // Q is read for the last time
+
+      // the mask, only on the diagonal tile and at the end of k
+      if (k0 + F::BK > Sk || (causal && k0 + F::BK - 1 > w.q0 + 64 * wg)) {
+#pragma unroll
+        for (int x = 0; x < F::BK / 2; ++x) {
+          const int row = row0 + 8 * ((x / 2) % 2);
+          const int col = k0 + 8 * (x / 4) + col_l + (x % 2);
+          if (col >= Sk || (causal && row < col)) sc[x] = -INFINITY;
+        }
+      }
+
+      // online softmax in registers, as flash_wgmma_kernel
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int x = 0; x < F::BK / 2; ++x) mx[(x / 2) % 2] = fmaxf(mx[(x / 2) % 2], sc[x]);
+      float alpha[2], neg_m[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        alpha[r] = exp2f(m[r] - m_use);
+        neg_m[r] = -m_use;
+        m[r] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int x = 0; x < F::BK / 2; ++x) {
+        const int r = (x / 2) % 2;
+        sc[x] = exp2f(fmaf(sc[x], scale_log2, neg_m[r]));
+        sum[r] += sc[x];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], sum[r]);
+#pragma unroll
+      for (int x = 0; x < F::HD / 2; ++x) acc[x] *= alpha[(x / 2) % 2];
+
+      // O += P V as m64n256k16: P, rounded to bf16, is the register A
+      // operand, packed before the fence (a register written after it
+      // makes the compiler fence again before its wgmma); V is N-major in
+      // shared memory (transpose bit), its four boxes BOX_K bytes apart,
+      // 16 kv rows = 2048 bytes a step
+      uint32_t pa[F::BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < F::BK / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+      mbar_wait(v_full + s, phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < F::BK / 16; ++kk)
+        wgmma_rs_n256(acc, pa[kk], desc_sw128(v_smem + kk * 16 * 128, F::BOX_K / 16, 64));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(v_empty + s);
+    }
+    // the item's tiles past this warpgroup's diagonal (warpgroup 0 under
+    // the causal mask): keep the turn and free the stage, without waiting
+    // for its loads. This is safe because of the turns: once warpgroup 0
+    // has its turn at tile n, warpgroup 1 has issued its S of tile n - 1,
+    // so it is done with tile n - NST and these arrivals count toward tile
+    // n's phase of the empty barriers; and before warpgroup 0 waits on this
+    // stage again (tile n + NST, in the next item), warpgroup 1 has waited
+    // for tile n's K (its last S of the item comes before the next Q) and,
+    // before the turn that lets warpgroup 0 read that V, for tile n's V, so
+    // no phase of the full barriers is skipped unseen.
+    for (int j = n_own; j < w.n_tiles; ++j, ++n) {
+      const int s = n % F::NST;
+      named_sync(1 + wg, F::CONSUMERS);
+      named_arrive(2 - wg, F::CONSUMERS);
+      mbar_arrive(k_empty + s);
+      mbar_arrive(v_empty + s);
+    }
+
+    // epilogue, while the producer already fills the next item's buffers
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= Sq) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      uint32_t* orow = reinterpret_cast<uint32_t*>(
+          o + ((static_cast<int64_t>(w.b) * Sq + row) * H + w.h) * F::HD);
+#pragma unroll
+      for (int t = 0; t < F::HD / 8; ++t)
+        orow[(8 * t + col_l) / 2] =
+            pack_bf16(acc[4 * t + 2 * r] * inv, acc[4 * t + 2 * r + 1] * inv);
+    }
+  }
+  if (wg == 0) named_sync(1, F::CONSUMERS);  // warpgroup 1's last opening
+}
+
 int sm_count() {
   int dev = 0, n = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -1055,12 +1383,46 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o, int
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_flash_wgmma256(const void* q, const void* k, const void* v, void* o, int B,
+                          int Sq, int Sk, int H, int Hkv, int64_t sqb, int64_t sqs,
+                          int64_t sqh, int64_t skb, int64_t sks, int64_t skh,
+                          int64_t svb, int64_t svs, int64_t svh, int causal,
+                          cudaStream_t stream) {
+  using F = Wg256Tile;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_wgmma256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  CUtensorMap qm, km, vm;
+  int err = make_map(&qm, q, 2, F::HD, H, Sq, B, sqh, sqs, sqb, 64, F::BQ,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = make_map(&km, k, 2, F::HD, Hkv, Sk, B, skh, sks, skb, 64, F::BK,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = make_map(&vm, v, 2, F::HD, Hkv, Sk, B, svh, svs, svb, 64, F::BK,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  const int64_t n_items = static_cast<int64_t>((Sq + F::BQ - 1) / F::BQ) * H * B;
+  const int sms = sm_count();
+  if (sms <= 0 || n_items > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(n_items < sms ? n_items : sms);  // one block an SM
+  flash_wgmma256_kernel<<<grid, F::THREADS, F::BYTES, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), B, Sq, Sk, H, H / Hkv, causal,
+      1.4426950408889634f / sqrtf(static_cast<float>(F::HD)));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The dispatch rule between the hand-written variants (kernels/
 // flash_attention.py::flash_variant is the same rule in Python, tested on
-// the CPU): f32 -> flash_kernel on the fp32 cores; bf16 at hd 64 or 128
-// with 16-byte aligned bases and strides (TMA's requirement) ->
-// flash_wgmma_kernel; any other bf16 -> flash_mma_kernel.
-enum FlashVariant { kFlashFp32 = 0, kFlashMma = 1, kFlashWgmma = 2 };
+// the CPU): f32 -> flash_kernel on the fp32 cores; bf16 with 16-byte
+// aligned bases and strides (TMA's requirement) at hd 64 or 128 ->
+// flash_wgmma_kernel, at hd 256 -> flash_wgmma256_kernel; any other bf16
+// (hd 16, 32; strides TMA cannot take) -> flash_mma_kernel.
+enum FlashVariant { kFlashFp32 = 0, kFlashMma = 1, kFlashWgmma = 2, kFlashWgmma256 = 3 };
 
 int flash_variant(int dtype, int hd, const void* q, const void* k, const void* v,
                   const int64_t (&strides)[9]) {
@@ -1068,7 +1430,8 @@ int flash_variant(int dtype, int hd, const void* q, const void* k, const void* v
   bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                    reinterpret_cast<uintptr_t>(v)) % 16) == 0;
   for (int64_t s : strides) aligned = aligned && s > 0 && s % 8 == 0;
-  return (hd == 64 || hd == 128) && aligned ? kFlashWgmma : kFlashMma;
+  if (!aligned) return kFlashMma;
+  return hd == 64 || hd == 128 ? kFlashWgmma : hd == 256 ? kFlashWgmma256 : kFlashMma;
 }
 
 int dispatch_flash(int variant, int hd, const void* q, const void* k, const void* v,
@@ -1087,6 +1450,9 @@ int dispatch_flash(int variant, int hd, const void* q, const void* k, const void
     if (hd == 128) return launch_flash_wgmma<128>(REPRO_FLASH_ARGS);
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (variant == kFlashWgmma256)
+    return hd == 256 ? launch_flash_wgmma256(REPRO_FLASH_ARGS)
+                     : static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     REPRO_FLASH(16)
     REPRO_FLASH(32)
@@ -1470,8 +1836,8 @@ bool supported_hd(int hd) {
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
 // dimension of every tensor is contiguous and o is a contiguous
 // (B, Sq, H, hd) tensor. *variant receives the kernel that was launched
-// (0 flash_kernel, 1 flash_mma_kernel, 2 flash_wgmma_kernel). Returns a
-// cudaError_t value (0 = launched).
+// (0 flash_kernel, 1 flash_mma_kernel, 2 flash_wgmma_kernel, 3
+// flash_wgmma256_kernel). Returns a cudaError_t value (0 = launched).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Sk, int H, int Hkv, int hd, int64_t sqb, int64_t sqs,

@@ -6,11 +6,13 @@ attention with an online softmax. The kernel is in ``csrc/attention.cu``
 (its header gives the design and the bound on the card); its plain-PyTorch
 version is ``kernels/ref.py::mha_ref``.
 
-The kernel has three hand-written variants, chosen by one rule
+The kernel has four hand-written variants, chosen by one rule
 (``flash_variant``, the same rule as ``csrc/attention.cu::flash_variant``):
 ``flash_wgmma`` (bf16 at hd 64 or 128 with 16-byte aligned bases and
-strides: wgmma fed by a TMA ring), ``flash_mma`` (any other bf16:
-``mma.sync``) and ``flash_fp32`` (float32, on the fp32 cores). There is no
+strides: wgmma fed by a TMA ring), ``flash_wgmma256`` (the same at hd 256:
+a producer warpgroup hands its registers to the consumers),
+``flash_mma`` (any other bf16: ``mma.sync``) and ``flash_fp32`` (float32,
+on the fp32 cores). There is no
 fallback between them: the C entry point reports the variant it launched,
 and the wrapper raises if that is not the rule's.
 
@@ -31,11 +33,13 @@ from repro_torch.kernels import _build
 
 # kernel name -> launches since the last reset (read by chip_smoke.py to
 # prove the serving path went through the kernel)
-VARIANTS = ("flash_fp32", "flash_mma", "flash_wgmma")  # the C entry's codes
+VARIANTS = ("flash_fp32", "flash_mma", "flash_wgmma",  # the C entry's codes
+            "flash_wgmma256")
 launches = {"flash_attention": 0, **{name: 0 for name in VARIANTS}}
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-WGMMA_HEAD_DIMS = (64, 128)
+# head dim -> the wgmma variant that takes it (TMA-aligned bf16 only)
+WGMMA_BY_HD = {64: "flash_wgmma", 128: "flash_wgmma", 256: "flash_wgmma256"}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 9
              + [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
@@ -89,15 +93,16 @@ def check_inputs(q, k, v) -> None:
 
 def flash_variant(dtype, hd: int, data_ptrs, strides) -> str:
     """The variant the kernel takes for these inputs: ``flash_fp32`` for
-    float32; ``flash_wgmma`` for bfloat16 at hd 64 or 128 when every base
-    pointer is 16-byte aligned and every stride (batch, row and head of q,
-    k and v, in elements) a positive multiple of 8 elements, as TMA
-    needs; else ``flash_mma``. Plain metadata, so it runs on the CPU."""
+    float32; for bfloat16 when every base pointer is 16-byte aligned and
+    every stride (batch, row and head of q, k and v, in elements) a
+    positive multiple of 8 elements, as TMA needs, ``flash_wgmma`` at hd
+    64 or 128 and ``flash_wgmma256`` at hd 256; else ``flash_mma``. Plain
+    metadata, so it runs on the CPU."""
     if dtype == torch.float32:
         return "flash_fp32"
     aligned = (all(p % 16 == 0 for p in data_ptrs)
                and all(s > 0 and s % 8 == 0 for s in strides))
-    return "flash_wgmma" if hd in WGMMA_HEAD_DIMS and aligned else "flash_mma"
+    return WGMMA_BY_HD.get(hd, "flash_mma") if aligned else "flash_mma"
 
 
 def variant_of(q, k, v) -> str:

@@ -39,6 +39,7 @@ def _f32(x):
     (2, 128, 128, 4, 2, 64, True),
     (1, 256, 256, 8, 8, 32, True),
     (2, 64, 64, 4, 1, 128, False),
+    (1, 128, 128, 2, 2, 256, True),  # gemma-7b's head dim
 ])
 def test_flash_matches_jax(dtype, B, Sq, Sk, H, Hkv, hd, causal):
     (tq, jq), (tk, jk), (tv, jv) = (_rand(s, i, dtype) for i, s in enumerate(
@@ -150,7 +151,9 @@ def _meta(dtype, hd, shift=0, row_stride=None):
     (_meta(torch.bfloat16, 128), "flash_wgmma"),
     (_meta(torch.bfloat16, 64), "flash_wgmma"),
     (_meta(torch.bfloat16, 32), "flash_mma"),
-    (_meta(torch.bfloat16, 256), "flash_mma"),
+    (_meta(torch.bfloat16, 256), "flash_wgmma256"),
+    (_meta(torch.bfloat16, 256, row_stride=8 * 256 + 4), "flash_mma"),
+    (_meta(torch.bfloat16, 256, shift=2), "flash_mma"),
     (_meta(torch.bfloat16, 128, shift=8), "flash_mma"),
     (_meta(torch.bfloat16, 128, row_stride=8 * 128 + 4), "flash_mma"),
     (_meta(torch.bfloat16, 64, row_stride=8 * 64 + 8), "flash_wgmma"),
@@ -177,6 +180,12 @@ def test_flash_variant_of_tensors():
     heads = buf[..., :8 * 64].unflatten(-1, (8, 64))
     assert fa.variant_of(heads[:, :, :4], heads[:, :, 4:6],
                          heads[:, :, 6:]) == "flash_mma"
+    q256 = torch.zeros((4, 32, 16, 256), dtype=torch.bfloat16)
+    assert fa.variant_of(q256, q256, q256) == "flash_wgmma256"
+    buf = torch.zeros((2, 16, 6 * 256 + 4), dtype=torch.bfloat16)
+    heads = buf[..., :6 * 256].unflatten(-1, (6, 256))
+    assert fa.variant_of(heads[:, :, :2], heads[:, :, 2:4],
+                         heads[:, :, 4:]) == "flash_mma"
     assert set(fa.launches) == {"flash_attention", *fa.VARIANTS}
 
 

@@ -215,31 +215,36 @@ def test_flash_wgmma_matches_plain(cuda, Sq, hd, g):
     assert torch.equal(out, again)
 
 
-def test_flash_serving_shape_takes_wgmma(cuda):
-    """The serving path's contiguous (4, 512, 40/10, 128) bf16 call is
-    counted as the wgmma variant, beside the total."""
+@pytest.mark.parametrize("shape,variant", [
+    ((4, 512, 40, 10, 128), "flash_wgmma"),      # phi3-medium-14b
+    ((4, 512, 16, 16, 256), "flash_wgmma256")])  # gemma-7b
+def test_flash_serving_shape_takes_wgmma(cuda, shape, variant):
+    """A serving path's contiguous bf16 prefill call is counted as its
+    wgmma variant, beside the total."""
     from repro_torch.kernels import flash_attention
 
-    q = _randn((4, 512, 40, 128), 17, torch.bfloat16, cuda)
-    k = _randn((4, 512, 10, 128), 18, torch.bfloat16, cuda)
-    v = _randn((4, 512, 10, 128), 19, torch.bfloat16, cuda)
+    B, S, H, Hkv, hd = shape
+    q = _randn((B, S, H, hd), 17, torch.bfloat16, cuda)
+    k = _randn((B, S, Hkv, hd), 18, torch.bfloat16, cuda)
+    v = _randn((B, S, Hkv, hd), 19, torch.bfloat16, cuda)
     before = dict(flash_attention.launches)
     flash_attention.flash_attention(q, k, v)
     torch.cuda.synchronize()
     after = flash_attention.launches
-    assert {n: after[n] - before[n] for n in after} == {
-        "flash_attention": 1, "flash_wgmma": 1, "flash_mma": 0,
-        "flash_fp32": 0}
+    want = {n: 0 for n in after}
+    want.update({"flash_attention": 1, variant: 1})
+    assert {n: after[n] - before[n] for n in after} == want
 
 
-def test_flash_unaligned_view_takes_mma(cuda):
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_unaligned_view_takes_mma(cuda, hd):
     """A view whose row stride is not a multiple of 8 elements is not
     TMA-able: the rule sends it to the mma.sync variant, which agrees
     with the plain version."""
     from repro_torch.kernels import flash_attention, ops, ref
 
-    buf = _randn((2, 100, 8 * 64 + 4), 20, torch.bfloat16, cuda)
-    heads = buf[..., :8 * 64].unflatten(-1, (8, 64))
+    buf = _randn((2, 100, 8 * hd + 4), 20, torch.bfloat16, cuda)
+    heads = buf[..., :8 * hd].unflatten(-1, (8, hd))
     q, k, v = heads[:, :, :4], heads[:, :, 4:6], heads[:, :, 6:]
     before = flash_attention.launches["flash_mma"]
     out = ops.flash_attention(q, k, v)
@@ -248,6 +253,57 @@ def test_flash_unaligned_view_takes_mma(cuda):
     assert flash_attention.launches["flash_mma"] == before + 1
     tol = ATTN_TOL[torch.bfloat16]
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+# the hd-256 wgmma variant of B3 (gemma-7b's head dim): ragged and exact q
+# tiles, GQA groups, causal
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("Sq", [1, 64, 100, 128, 300, 1000])
+def test_flash_wgmma256_matches_plain(cuda, Sq, g):
+    from repro_torch.kernels import flash_attention, ops, ref
+
+    B, Hkv = 2, 2
+    q = _randn((B, Sq, g * Hkv, 256), 24, torch.bfloat16, cuda)
+    k = _randn((B, Sq, Hkv, 256), 25, torch.bfloat16, cuda)
+    v = _randn((B, Sq, Hkv, 256), 26, torch.bfloat16, cuda)
+    before = flash_attention.launches["flash_wgmma256"]
+    out = ops.flash_attention(q, k, v, causal=True)
+    again = ops.flash_attention(q, k, v, causal=True)
+    want = ref.mha_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["flash_wgmma256"] == before + 2
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,fused", [
+    (200, 333, False, False), (333, 77, False, False), (77, 300, True, False),
+    (300, 300, True, True), (130, 257, False, True)])
+def test_flash_wgmma256_cross_lengths_and_views(cuda, Sq, Sk, causal, fused):
+    """Sq != Sk with and without the causal mask, and q, k, v as views of
+    one fused projection (their strides are TMA-aligned)."""
+    from repro_torch.kernels import flash_attention, ops, ref
+
+    B, H, Hkv = 2, 4, 2
+    if fused:
+        assert Sq == Sk or not causal
+        qkv = _randn((B, max(Sq, Sk), H + 2 * Hkv, 256), 27, torch.bfloat16, cuda)
+        q, k, v = qkv[:, :Sq, :H], qkv[:, :Sk, H:H + Hkv], qkv[:, :Sk, H + Hkv:]
+    else:
+        q = _randn((B, Sq, H, 256), 27, torch.bfloat16, cuda)
+        k = _randn((B, Sk, Hkv, 256), 28, torch.bfloat16, cuda)
+        v = _randn((B, Sk, Hkv, 256), 29, torch.bfloat16, cuda)
+    assert flash_attention.variant_of(q, k, v) == "flash_wgmma256"
+    before = flash_attention.launches["flash_wgmma256"]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    again = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.mha_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["flash_wgmma256"] == before + 2
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, again)
 
 
 def _decode_chunk(B, S, Hkv):

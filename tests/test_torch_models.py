@@ -186,6 +186,64 @@ def test_decode_past_the_cache_writes_nothing(models):
     assert torch.isfinite(lg).all()
 
 
+# gemma-7b's structure at its head dim: GeGLU, tied embeddings, as many kv
+# heads as query heads, hd 256 (the path of the flash_wgmma256 kernel on the
+# card), cut to 2 layers of d_model 512 and 2 heads
+GEMMA_HD256 = dict(num_layers=2, d_model=512, num_heads=2, num_kv_heads=2,
+                   head_dim=256, d_ff=1024)
+
+
+@pytest.fixture(scope="module")
+def gemma_hd256():
+    """(JAX cfg, port cfg, JAX params, port params on the CPU)."""
+    jcfg = dataclasses.replace(j_smoke("gemma-7b"), **GEMMA_HD256)
+    cfg = dataclasses.replace(get_smoke_config("gemma-7b"), **GEMMA_HD256)
+    jp = j_zoo.init_params(jcfg, jax.random.PRNGKey(1))
+    return jcfg, cfg, jp, convert.lm_params_from_numpy(
+        cfg, jax.device_get(jp), device="cpu")
+
+
+def test_gemma_hd256_prefill_matches_jax(gemma_hd256):
+    jcfg, cfg, jp, tp = gemma_hd256
+    assert cfg.resolved_head_dim == 256 and cfg.mlp_kind == "geglu"
+    batch = _batch(cfg, seed=3)
+    jl, jc = j_zoo.prefill_fn(jcfg, jp,
+                              {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, tc = model_zoo.prefill_fn(cfg, tp, {k: _t(v) for k, v in batch.items()})
+    assert tl.shape == jl.shape
+    np.testing.assert_allclose(tl.numpy(), _np(jl), **TOL)
+    for i, c in enumerate(tc):
+        np.testing.assert_allclose(c["k"].numpy(), _np(jc["l0"]["k"][i]), **TOL)
+
+
+def test_gemma_hd256_greedy_decode_matches_jax(gemma_hd256):
+    """The prompt fed through decode, then greedy tokens: each step's logits
+    within the file's tolerance and the same tokens on both sides."""
+    jcfg, cfg, jp, tp = gemma_hd256
+    prompt = _batch(cfg, seed=4)["tokens"][:, :8]
+    steps = 6
+    decode = jax.jit(lambda p, t, c, n: j_zoo.decode_fn(jcfg, p, t, c, n))
+    jc = j_zoo.init_decode_caches(jcfg, B, prompt.shape[1] + steps)
+    tc = model_zoo.init_decode_caches(cfg, B, prompt.shape[1] + steps,
+                                      device="cpu")
+    jtok = ttok = None
+    jout, tout = [], []
+    for i in range(prompt.shape[1] + steps):
+        if i < prompt.shape[1]:
+            jin = tin = prompt[:, i:i + 1]
+        else:
+            jin, tin = np.asarray(jtok), ttok.numpy()
+            jout.append(jin)
+            tout.append(tin)
+        jl, jc = decode(jp, jnp.asarray(jin), jc, jnp.int32(i))
+        tl, tc = model_zoo.decode_fn(cfg, tp, _t(tin), tc, i)
+        np.testing.assert_allclose(tl.numpy(), _np(jl), **TOL)
+        jtok = jnp.argmax(jl[:, -1:], axis=-1).astype(jnp.int32)
+        ttok = torch.argmax(tl[:, -1:], dim=-1).to(torch.int32)
+    np.testing.assert_array_equal(np.concatenate(tout, 1),
+                                  np.concatenate(jout, 1))
+
+
 # ---------------------------------------------------------------------------
 # conversion, counts, unported families
 # ---------------------------------------------------------------------------

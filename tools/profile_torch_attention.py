@@ -14,9 +14,10 @@ Each run prints one JSON line: the card, its power limit, and per case the
 kernel's median device time per call (CUDA events, the stream held by a
 sleep kernel while the host enqueues) and SDPA's.
 
-Decode is timed warm (one (q, k, v) set, whose 11 MB cache stays in the
-50 MB L2 across calls) and cold (calls rotate over 10 sets, 111 MB, so
-each call finds its cache in HBM, as every layer of a decode step does),
+Decode is timed warm (one (q, k, v) set, whose cache of 11 MB (phi3) or
+36 MB (gemma-7b) stays in the 50 MB L2 across calls) and cold (calls
+rotate over 10 sets, 111 or 357 MB, so each call finds its cache in HBM,
+as every layer of a decode step does),
 each call both launched directly and replayed from a CUDA graph of it.
 SDPA's decode call (a masked product with a few kernels) is timed from its
 graph only, so the host's gaps between its kernels stay out of the time.
@@ -31,9 +32,15 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from chip_smoke import device_ms, graph_ms  # noqa: E402  (CUDA-event timers)
 
+# B, S, H, Hkv, hd: phi3's serving shape and its neighbours, internvl2's
+# heads, gemma-7b's heads at S = 512 (its serving prefill) and 2048
 FLASH_CASES = [(4, 512, 40, 10, 128), (4, 2048, 40, 10, 128),
-               (4, 1000, 40, 10, 128), (4, 512, 14, 2, 64)]
-DECODE_SHAPE = (4, 544, 40, 10, 128)  # B, S_max, H, Hkv, hd (phi3 serving)
+               (4, 1000, 40, 10, 128), (4, 512, 14, 2, 64),
+               (4, 512, 16, 16, 256), (4, 2048, 16, 16, 256)]
+# (B, S_max, H, Hkv, hd), cur_len values: phi3's and gemma-7b's serving
+# caches (S_max = 512 + 32)
+DECODE_CASES = [((4, 544, 40, 10, 128), (271, 543)),
+                ((4, 544, 16, 16, 256), (543,))]
 COLD_SETS = 10
 
 
@@ -47,7 +54,7 @@ def main():
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import flash_attention
 
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU (CUDA is not available)")
@@ -80,10 +87,20 @@ def main():
                                  sdpa_ms=device_ms(sdpa, qkv, n, 500_000_000)[0],
                                  variant=ran))
         del qkv
-    B, S, H, Hkv, hd = DECODE_SHAPE
+    for (B, S, H, Hkv, hd), curs in DECODE_CASES:
+        decode_rows(res, randn, B, S, H, Hkv, hd, curs, dev)
+    print(json.dumps(res))
+
+
+def decode_rows(res, randn, B, S, H, Hkv, hd, curs, dev):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention
+
     sets = [(randn((B, H, hd), 100 + j), randn((B, S, Hkv, hd), 200 + j),
              randn((B, S, Hkv, hd), 300 + j)) for j in range(COLD_SETS)]
-    for cur in (271, 543):
+    for cur in curs:
         mask = (torch.arange(S, device=dev) <= cur)[None, None, None, :]
 
         def sdpa(q, k, v, mask=mask):
@@ -100,7 +117,6 @@ def main():
             row[temp + "_graph_ms"] = graph_ms(kern, group, 400, 1_000_000_000)[0]
             row[temp + "_sdpa_ms"] = graph_ms(sdpa, group, 400, 1_000_000_000)[0]
         res["decode"].append(row)
-    print(json.dumps(res))
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where the port's serving path spends its time on the card: the model of
-the phi3-serve cell (``chip_smoke.py`` phase 7: phi3-medium-14b at full
-width, bf16, random weights from seed 0, 4 requests of 512 prompt tokens).
+a serving cell (``chip_smoke.py`` phase 7, phi3-medium-14b, or phase 9,
+gemma-7b: full width, bf16, random weights from seed 0, 4 requests of 512
+prompt tokens).
 
-    python3 tools/profile_torch_serve.py     # one NVIDIA GPU
+    python3 tools/profile_torch_serve.py                   # phi3-serve, one NVIDIA GPU
+    python3 tools/profile_torch_serve.py --arch gemma-7b   # gemma-serve
 
 For one prefill (4 x 512 tokens) and for decode steps at cur_len 512 and
 on (the decode loop's new tokens) it prints the host wall per call,
@@ -12,6 +14,7 @@ busy share of the window, the kernels launched per call and the kernels
 that take the most device time. The traces are written under
 ``build/profile/`` (not kept in the repository).
 """
+import argparse
 import json
 import sys
 import time
@@ -67,6 +70,11 @@ def report(name, wall_ms, prof):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="phi3-medium-14b",
+                    choices=["phi3-medium-14b", "gemma-7b"],
+                    help="the serving cell's model")
+    args = ap.parse_args()
     import numpy as np
     import torch
 
@@ -75,7 +83,7 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: CUDA is not available")
-    cfg = get_config("phi3-medium-14b")
+    cfg = get_config(args.arch)
     params = model_zoo.init_params(cfg, seed=0, device="cuda")
     prompts = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(B, S)).astype(np.int32), device="cuda")
@@ -112,7 +120,7 @@ def main():
     report(f"decode step (B={B}, cur_len {S}..{S + NEW - 1})",
            (time.perf_counter() - t0) * 1e3 / n,
            profile_window(decode, 8, "decode"))
-    print(torch.cuda.get_device_name(0))
+    print(cfg.name, torch.cuda.get_device_name(0))
 
 
 if __name__ == "__main__":
