@@ -28,16 +28,19 @@ line is printed only when every phase passed):
     just before the path is driven and read just after)
   6 the attention kernels vs their plain versions on the card: prefill
     (B=4, S in {512, 2048}, 40 heads over 10 kv heads, hd=128, bf16 and
-    f32, causal; a ragged S=1000; internvl2's 14-over-2 heads at hd=64;
-    gemma-7b's 16-over-16 heads at hd=256, S in {512, 2048}, and once
-    through views of a fused projection whose row stride TMA cannot
-    take), each with the B3 variant it ran (flash_wgmma, flash_wgmma256,
-    flash_mma or flash_fp32), and decode (B=4, S_max=544, cur_len in {0,
-    271, 543}, garbage and NaN past cur_len; gemma-7b's 16/16 heads at
-    hd=256, cur_len 543);
+    f32, causal; a ragged S=1000; internvl2's 14-over-2 heads at hd=64,
+    bf16 and f32; gemma-7b's 16-over-16 heads at hd=256, S in {512, 2048},
+    and once through views of a fused projection whose row stride TMA
+    cannot take; 16-over-16 heads at hd=32, S=2048, contiguous and through
+    such a view), each with the B3 variant it ran (flash_wgmma,
+    flash_wgmma256, flash_mma or flash_fp32), and decode (B=4, S_max=544,
+    cur_len in {0, 271, 543}, garbage and NaN past cur_len; gemma-7b's
+    16/16 heads at hd=256, cur_len 543);
     per-launch device time, the plain version's time, the time of torch's
     scaled_dot_product_attention on the same inputs (a yardstick only: the
-    port never calls it) and the bound; decode timed with a cold L2 (10
+    port never calls it) and the bound (bytes, operations or exps, each
+    over the card's rate; f32 operations at the 3xTF32 rate, with the
+    fp32-core bound beside it); decode timed with a cold L2 (10
     rotating input sets, 111 MB) and a warm one (one set), each call
     replayed from a CUDA graph of it (SDPA's and the plain version's
     several kernels then run without the host's gaps between them)
@@ -76,6 +79,8 @@ N, D_IM, NUM_QUERIES = 1_000_000, 128, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+TF32_FLOPS = 494.7e12  # H100 SXM data sheet, dense TF32 tensor cores
+EXP_PER_CLOCK_SM = 16  # special-function unit: CUDA C Programming Guide, cc 9.0
 # kernel -> (source in the repo, the TPU kernel it replaces)
 KERNELS = {
     "distance_slot_gather": ("src/repro_torch/csrc/distance.cu",
@@ -322,14 +327,50 @@ def close(out, want, tol):
     return err.max().item(), ok
 
 
-def attention_bound(nbytes, flops, dtype):
-    """Least time (ms) and what bounds it: bytes over the HBM rate vs
-    flops over the peak for the type (bf16 tensor cores, fp32 cores)."""
+def exp_rate():
+    """Exps a second the card's special-function units can do: 16 a clock
+    an SM, times the SM count and the maximum SM clock, both read from the
+    card."""
     import torch
 
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits",
+         "-i", "0"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EXP_PER_CLOCK_SM * sms * float(mhz) * 1e6
+
+
+def prefill_inputs(B, S, H, Hkv, hd, dtype, view, seed):
+    """q (B, S, H, hd) and k, v (B, S, Hkv, hd) on the card, from seeds
+    seed .. seed + 2: contiguous, or (``view``) three views of one fused
+    projection whose row stride, (H + 2 Hkv) hd + 4 elements, is no
+    multiple of 8, which TMA cannot take."""
+    import torch
+
+    def randn(shape, sd):
+        g = torch.Generator(device="cuda").manual_seed(sd)
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    if not view:
+        return (randn((B, S, H, hd), seed), randn((B, S, Hkv, hd), seed + 1),
+                randn((B, S, Hkv, hd), seed + 2))
+    width = (H + 2 * Hkv) * hd
+    heads = randn((B, S, width + 4), seed)[..., :width].unflatten(-1, (H + 2 * Hkv, hd))
+    return heads[:, :, :H], heads[:, :, H:H + Hkv], heads[:, :, H + Hkv:]
+
+
+def attention_bound(nbytes, flops, n_exp, rate_exp, dtype):
+    """Least time (ms) and what bounds it: bytes over the HBM rate, flops
+    over the peak for the type (bf16 tensor cores; float32 as 3xTF32, three
+    TF32 products a product), or exps over ``rate_exp``."""
+    import torch
+
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else TF32_FLOPS / 3
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / peak * 1e3, "exp": n_exp / rate_exp * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by
 
 
 def phase_attention():
@@ -340,7 +381,9 @@ def phase_attention():
     prefill case records the B3 variant it ran; decode is timed warm (one
     (q, k, v) set, its cache of 11 MB (phi3) or 36 MB (gemma-7b) held in
     the 50 MB L2 across calls) and cold (calls rotate over 10 sets, 111 MB
-    or 357 MB, as the layers of a decode step find their caches)."""
+    or 357 MB, as the layers of a decode step find their caches). Float32
+    cases also give the bound on the fp32 cores (``bound_fp32_cores_ms``),
+    which 3xTF32 leaves behind."""
     import torch
     import torch.nn.functional as F
 
@@ -348,6 +391,7 @@ def phase_attention():
 
     dev = torch.device("cuda")
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    rate_exp = exp_rate()
 
     def randn(shape, seed, dtype):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -358,25 +402,19 @@ def phase_attention():
     for mod in (flash_attention, decode_attention):
         mod.reset_launches()
     # ---- B3: prefill flash attention, causal. A case is (B, S, H, Hkv,
-    # hd, dtype, view); a view case reads q, k and v out of one fused
-    # projection whose row stride ((H + 2 Hkv) hd + 4 elements) is no
-    # multiple of 8, which TMA cannot take: the flash_mma variant's case
+    # hd, dtype, view) (``prefill_inputs``); a view case is the flash_mma
+    # variant's (8-byte pieces); hd 32 goes to flash_mma contiguous or not
     flash_cases = [(4, S, 40, 10, 128, dt, False) for S in (512, 2048)
                    for dt in (torch.bfloat16, torch.float32)]
     flash_cases += [(4, 1000, 40, 10, 128, torch.bfloat16, False),
                     (4, 512, 14, 2, 64, torch.bfloat16, False)]
     flash_cases += [(4, S, 16, 16, 256, torch.bfloat16, view)  # gemma-7b's heads
                     for S, view in ((512, False), (2048, False), (512, True))]
+    flash_cases += [(4, 2048, 16, 16, 32, torch.bfloat16, view)
+                    for view in (False, True)]
+    flash_cases.append((4, 512, 14, 2, 64, torch.float32, False))
     for i, (B, S, H, Hkv, hd, dt, view) in enumerate(flash_cases):
-        if view:
-            width = (H + 2 * Hkv) * hd
-            heads = randn((B, S, width + 4), 3 * i, dt)[..., :width].unflatten(
-                -1, (H + 2 * Hkv, hd))
-            q, k, v = heads[:, :, :H], heads[:, :, H:H + Hkv], heads[:, :, H + Hkv:]
-        else:
-            q = randn((B, S, H, hd), 3 * i, dt)
-            k = randn((B, S, Hkv, hd), 3 * i + 1, dt)
-            v = randn((B, S, Hkv, hd), 3 * i + 2, dt)
+        q, k, v = prefill_inputs(B, S, H, Hkv, hd, dt, view, 3 * i)
         label = (B, S, H, Hkv, hd, dt) + (("view",) if view else ())
         before = dict(flash_attention.launches)
         out = flash_attention.flash_attention(q, k, v, causal=True)
@@ -407,7 +445,10 @@ def phase_attention():
         elt = q.element_size()
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
         flops = 4 * B * H * hd * S * (S + 1) // 2  # causal: row i sees i+1 keys
-        bound, by = attention_bound(nbytes, flops, dt)
+        n_exp = B * H * S * (S + 1) // 2
+        bound, by = attention_bound(nbytes, flops, n_exp, rate_exp, dt)
+        extra = ({"bound_fp32_cores_ms": flops / FP32_FLOPS * 1e3}
+                 if dt == torch.float32 else {})
         res["flash_attention"]["max_abs_err"] = max(
             res["flash_attention"]["max_abs_err"], err)
         res["flash_attention"]["cases"].append(dict(
@@ -415,7 +456,7 @@ def phase_attention():
             dtype=str(dt).split(".")[-1],
             variant=ran[0], max_abs_err=err, ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms, library_err=lib_err, bound_ms=bound,
-            bound_by=by))
+            bound_by=by, **extra))
         del q, k, v, out, again, want
     # ---- B4: decode attention over the serving caches (S_max = 512 + 32):
     # phi3's 40/10 heads at hd 128 (bf16 and f32, cur_len 0, 271, 543),
@@ -474,7 +515,8 @@ def phase_attention():
                 times[key] = graph_ms(fn, cold, 200, hold)[0]  # cold: main figure
             n_valid = cur + 1
             nbytes = (2 * q.numel() + 2 * B * n_valid * Hkv * hd) * q.element_size()
-            bound, by = attention_bound(nbytes, 4 * B * H * hd * n_valid, dt)
+            bound, by = attention_bound(nbytes, 4 * B * H * hd * n_valid,
+                                        B * H * n_valid, rate_exp, dt)
             res["decode_attention"]["cases"].append(dict(
                 shape=(B, S, H, Hkv, hd), cur_len=cur,
                 dtype=str(dt).split(".")[-1], max_abs_err=err, **times,
@@ -484,6 +526,7 @@ def phase_attention():
     # no served path (every served config's prefill is TMA-aligned), so its
     # launches in the kernels line are these
     res["launches"] = {**flash_attention.launches, **decode_attention.launches}
+    res["exp_per_s"] = rate_exp
     return res
 
 
@@ -745,7 +788,10 @@ def main():
         f"{c['shape']} {c['dtype']} on {c['variant']} err={c['max_abs_err']:.3g} "
         f"ms={c['ms']:.5f} plain_ms={c['plain_ms']:.5f} library_ms(sdpa)="
         f"{c['library_ms']:.5f} (vs plain {c['library_err']:.3g}) bound_ms="
-        f"{c['bound_ms']:.6f} ({c['bound_by']})" for c in fr["cases"]), flush=True)
+        f"{c['bound_ms']:.6f} ({c['bound_by']})" + (
+            f" fp32-core bound {c['bound_fp32_cores_ms']:.6f}"
+            if "bound_fp32_cores_ms" in c else "") for c in fr["cases"])
+        + f" | exp rate {ares['exp_per_s']:.4g}/s", flush=True)
     dr = ares["decode_attention"]
     print(f"phase 6 decode_attention: max_abs_err={dr['max_abs_err']:.3g} | " + "; ".join(
         f"{c['shape']} cur_len={c['cur_len']} {c['dtype']} err={c['max_abs_err']:.3g}"
@@ -802,7 +848,8 @@ def main():
     # B=4, S=512, bf16) for the total and wgmma, the same shape in f32,
     # gemma-7b's heads (hd 256, S=512) for wgmma256 and, read through the
     # unaligned view, for mma.sync; decode at the longest step (cur_len =
-    # 543), bf16, cold L2 as the main figure: phi3's, with gemma-7b's beside
+    # 543), bf16, cold L2 as the main figure: phi3's, with gemma-7b's beside.
+    # The two mma.sync variants also list every phase-6 case they ran
     cases = fr["cases"]
     by_variant = {c["variant"]: c for c in reversed(cases)}
     var_err = {v: max(c["max_abs_err"] for c in cases if c["variant"] == v)
@@ -827,6 +874,12 @@ def main():
             "library_ms": r.get("library_ms")}
         if "warm_ms" in r:
             entry["warm_ms"] = r["warm_ms"]
+        if name in ("flash_mma", "flash_fp32"):
+            entry["cases"] = [
+                {key: c[key] for key in ("shape", "dtype", "max_abs_err", "ms",
+                                         "plain_ms", "library_ms", "bound_ms",
+                                         "bound_by", "bound_fp32_cores_ms")
+                 if key in c} for c in cases if c["variant"] == name]
         if name == "decode_attention":
             g = dec[16]
             entry["gemma_7b"] = {

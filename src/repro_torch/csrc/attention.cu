@@ -14,7 +14,7 @@
 //                              projection)
 //       flash_wgmma256_kernel  bf16, hd 256, the same alignment
 //       flash_mma_kernel       any other bf16 (hd 16, 32; odd strides)
-//       flash_kernel           f32, on the fp32 cores
+//       flash_fp32_kernel      f32, on the tensor cores by 3xTF32
 //
 //   decode_attention — replaces the TPU kernel
 //     src/repro/kernels/decode_attention.py::_decode_kernel
@@ -67,10 +67,14 @@
 // items go (b, kv head) by (b, kv head), so the K/V of the few heads in
 // flight stay in L2 (at S = 2048 all of them would not): with the heads
 // fastest it was bound by moving K/V tiles, not by its products (PERF.md).
-// flash_mma_kernel: mma.sync m16n8k16 with ldmatrix fragments from
-// padded rows, 16 q rows a warp, no copy/compute overlap. flash_kernel (f32)
-// runs on the fp32 cores (TF32 would not hold float32's precision):
-// register-tiled S = Q K^T, P V reading P as float4.
+// flash_mma_kernel (bf16) and flash_fp32_kernel (f32) share one mma.sync
+// design (FA2-style, 16 q rows a warp): K/V double-buffered by cp.async in
+// the widest pieces the alignment allows, the next tile in flight under the
+// current one's products; flash_wgmma's softmax; bf16 as m16n8k16 with Q's
+// fragments kept in registers up to hd 128; f32 as 3xTF32 m16n8k8 (each
+// operand split into two TF32 parts, three products: float32's accuracy,
+// which one TF32 product would not hold). At hd 16 and 32 the exps, not the
+// products, set the pace: 16 a clock an SM. The design is at the kernels.
 // Common to all four: any Sq, Sk (the TPU version halved its block until
 // it divided S); q, k, v read in place through their strides; no atomics,
 // so repeated runs give the same bits.
@@ -119,7 +123,6 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr float kNegInf = -1e30f;  // the plain versions' mask value
-constexpr int kThreads = 128;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -131,8 +134,6 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to()
 }
-
-constexpr int align4(int n) { return (n + 3) & ~3; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -203,193 +204,45 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 // flash_attention (prefill)
 // ---------------------------------------------------------------------------
 
-template <int HD>
-struct FlashTile {
-  static constexpr int BQ = HD > 128 ? 32 : 64;  // q rows per block
-  static constexpr int BK = HD >= 128 ? 32 : 64;  // kv rows per tile
-  static constexpr int QS = HD + 1;              // Q row stride (floats)
-  static constexpr int KS = BK + 1;              // K^T row stride
-  static constexpr int PS = BK + 4;              // P row stride (float4 rows)
-  static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = align4(Q_OFF + BQ * QS);
-  static constexpr int V_OFF = align4(K_OFF + HD * KS);
-  static constexpr int P_OFF = align4(V_OFF + BK * HD);
-  static constexpr int M_OFF = align4(P_OFF + BQ * PS);
-  static constexpr int L_OFF = M_OFF + BQ;
-  static constexpr int A_OFF = L_OFF + BQ;
-  static constexpr int FLOATS = A_OFF + BQ;
-  static constexpr int BYTES = FLOATS * 4;
-  // S = Q K^T: thread (ty, tx) of 8 x 16 owns rows ty + 8i, columns tx + 16j
-  static constexpr int RI = BQ / 8;
-  static constexpr int CJ = BK / 16;
-  // O: COLS distinct columns and ROWS rows a thread
-  static constexpr int COLS = HD >= kThreads ? HD / kThreads : 1;
-  static constexpr int ROWS = BQ * HD / kThreads / COLS;
-  static constexpr int TPR = kThreads / BQ;  // threads per row in the softmax
-  static_assert(BQ % 8 == 0 && BK % 16 == 0 && BK % 4 == 0, "tile shape");
-  static_assert(HD >= kThreads ? HD % kThreads == 0 : kThreads % HD == 0, "hd");
-  static_assert(32 % TPR == 0 && BK % TPR == 0, "softmax lanes");
-};
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk, int H,
-    int group, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb, int64_t sks,
-    int64_t skh, int64_t svb, int64_t svs, int64_t svh, int causal,
-    float scale) {
-  using F = FlashTile<HD>;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem + F::Q_OFF;
-  float* Kt = smem + F::K_OFF;
-  float* Vs = smem + F::V_OFF;
-  float* Ps = smem + F::P_OFF;
-  float* m_s = smem + F::M_OFF;
-  float* l_s = smem + F::L_OFF;
-  float* a_s = smem + F::A_OFF;
-
-  const int t = threadIdx.x;
-  const int n_qt = gridDim.x;
-  const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.x)
-                        : static_cast<int>(blockIdx.x);
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
-  const int q0 = qt * F::BQ;
-  const float* qb = q + b * sqb + h * sqh;
-  const float* kb = k + b * skb + hk * skh;
-  const float* vb = v + b * svb + hk * svh;
-
-  for (int idx = t; idx < F::BQ * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx % HD;
-    Qs[r * F::QS + d] = q0 + r < Sq ? qb[(q0 + r) * sqs + d] : 0.f;
-  }
-  if (t < F::BQ) {
-    m_s[t] = kNegInf;
-    l_s[t] = 0.f;
-  }
-
-  const int tx = t % 16, ty = t / 16;
-  float acc[F::ROWS][F::COLS];
-#pragma unroll
-  for (int r = 0; r < F::ROWS; ++r)
-#pragma unroll
-    for (int c = 0; c < F::COLS; ++c) acc[r][c] = 0.f;
-  auto o_row = [&](int r) {
-    return HD >= kThreads ? r : t / HD + r * (kThreads / HD);
-  };
-  auto o_col = [&](int c) { return HD >= kThreads ? t + c * kThreads : t % HD; };
-
-  const int kv_end = causal ? min(Sk, q0 + F::BQ) : Sk;
-  for (int k0 = 0; k0 < kv_end; k0 += F::BK) {
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int idx = t; idx < F::BK * HD; idx += kThreads) {
-      const int c = idx / HD, d = idx % HD;
-      const bool in = k0 + c < Sk;
-      Kt[d * F::KS + c] = in ? kb[(k0 + c) * sks + d] : 0.f;
-      Vs[c * HD + d] = in ? vb[(k0 + c) * svs + d] : 0.f;
-    }
-    __syncthreads();
-
-    // S tile = scale * Q K^T, masked
-    float s[F::RI][F::CJ];
-#pragma unroll
-    for (int i = 0; i < F::RI; ++i)
-#pragma unroll
-      for (int j = 0; j < F::CJ; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[F::RI], kv[F::CJ];
-#pragma unroll
-      for (int i = 0; i < F::RI; ++i) qv[i] = Qs[(ty + 8 * i) * F::QS + d];
-#pragma unroll
-      for (int j = 0; j < F::CJ; ++j) kv[j] = Kt[d * F::KS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < F::RI; ++i)
-#pragma unroll
-        for (int j = 0; j < F::CJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < F::RI; ++i) {
-      const int r = ty + 8 * i;
-#pragma unroll
-      for (int j = 0; j < F::CJ; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok = k0 + c < Sk && (!causal || q0 + r >= k0 + c);
-        Ps[r * F::PS + c] = ok ? s[i][j] * scale : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // online softmax, TPR adjacent lanes per row
-    {
-      const int r = t / F::TPR, part = t % F::TPR;
-      const float m_old = m_s[r];
-      float mx = kNegInf;
-      for (int c = part; c < F::BK; c += F::TPR) mx = fmaxf(mx, Ps[r * F::PS + c]);
-#pragma unroll
-      for (int off = F::TPR / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int c = part; c < F::BK; c += F::TPR) {
-        const float p = expf(Ps[r * F::PS + c] - m_new);
-        Ps[r * F::PS + c] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = F::TPR / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (part == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // O = alpha * O + P V
-#pragma unroll
-    for (int r = 0; r < F::ROWS; ++r) {
-      const float alpha = a_s[o_row(r)];
-#pragma unroll
-      for (int c = 0; c < F::COLS; ++c) acc[r][c] *= alpha;
-    }
-    for (int k4 = 0; k4 < F::BK; k4 += 4) {
-      float vv[F::COLS][4];
-#pragma unroll
-      for (int c = 0; c < F::COLS; ++c)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) vv[c][kk] = Vs[(k4 + kk) * HD + o_col(c)];
-#pragma unroll
-      for (int r = 0; r < F::ROWS; ++r) {
-        const float4 p = *reinterpret_cast<const float4*>(&Ps[o_row(r) * F::PS + k4]);
-#pragma unroll
-        for (int c = 0; c < F::COLS; ++c) {
-          float a = acc[r][c];
-          a = fmaf(p.x, vv[c][0], a);
-          a = fmaf(p.y, vv[c][1], a);
-          a = fmaf(p.z, vv[c][2], a);
-          a = fmaf(p.w, vv[c][3], a);
-          acc[r][c] = a;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  float* ob = o + (static_cast<int64_t>(b) * Sq * H + h) * HD;
-#pragma unroll
-  for (int r = 0; r < F::ROWS; ++r) {
-    const int row = o_row(r);
-    if (q0 + row >= Sq) continue;
-    const float inv = 1.f / fmaxf(l_s[row], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < F::COLS; ++c)
-      ob[static_cast<int64_t>(q0 + row) * H * HD + o_col(c)] = acc[r][c] * inv;
-  }
-}
-
-// ---- bf16 on the tensor cores (mma.sync m16n8k16, f32 accumulators) ----
+// ---- flash_mma (bf16) and flash_fp32 (f32 by 3xTF32) on mma.sync ----
+//
+// The two variants for what TMA and wgmma do not take: flash_mma every bf16
+// input the wgmma variants do not (hd 16 and 32; bases or strides that are
+// not 16-byte aligned), flash_fp32 every float32 input. One design, two
+// element types:
+//   * a warp owns 16 q rows (32 at bf16 hd 32: two m-tiles share each K/V
+//     fragment); S = Q K^T and O += P V are mma.sync tiles with f32
+//     accumulators (bf16: m16n8k16 from ldmatrix fragments; f32: m16n8k8 on
+//     TF32 operands, three products a tile, below);
+//   * K/V tiles are double-buffered in shared memory and the next tile is in
+//     flight while the current one is computed: cp.async in pieces of W
+//     bytes, the largest of 16, 8 and 4 that divides every base and stride
+//     (so a view of a fused projection with an odd row stride still loads 8
+//     or 4 bytes at a time), one barrier a tile. W = 2 (a bf16 base or
+//     stride at an odd element) has no cp.async: plain 2-byte loads, still
+//     into the other stage ahead of the current tile's products;
+//   * softmax as flash_wgmma's: exp2 (ex2.approx) with scale * log2(e)
+//     folded into one FMA, the mask only on tiles that cross the diagonal or
+//     Sk, a row's max shared by quad shuffles, its sum kept per lane and
+//     reduced once at the end; a warp skips the tiles past its last row.
+//     The running max moves only when a row's max passes it by more than 8
+//     (log2 domain), so most tiles skip rescaling O;
+//   * bf16 keeps Q's A fragments in registers for the whole kv loop at hd
+//     <= 128; at hd 256 they would be 64 registers beside O's 128, so Q is
+//     read from shared memory each tile;
+//   * the grid is (head, q tile, batch), heads fastest: the g query heads of
+//     a kv head run side by side and share its K/V tiles in L2; q tiles go
+//     longest-first under the causal mask.
+// What bounds them: at hd 16 and 32 the exps (16 a clock an SM), at hd 128
+// and 256 the products; issuing S(j + 1) under tile j's exps needed a third
+// stage and more registers, and ran slower (PERF.md).
+// 3xTF32 (flash_fp32): each f32 operand x is split into hi = tf32(x) and
+// lo = tf32(x - hi), and a product accumulates lo*hi + hi*lo + hi*hi in
+// f32: float32's accuracy to about 2^-21, where one TF32 product (a 10-bit
+// mantissa) would not hold it. The m16n8k8 accumulator gives lane (g, t)
+// the columns 2t and 2t+1 of an 8-column tile where an A fragment wants t
+// and t+4: P stays in registers as it is, and V's B fragment is read in the
+// same permuted order (kv rows 2t and 2t+1), which P V's sum over k allows.
 
 // four 8x8 b16 matrices; lane l gives the row address of matrix l / 8
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
@@ -414,237 +267,503 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c (16x8, f32) += a (16x8, tf32, row) * b (8x8, tf32, col)
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo, both TF32 (round to nearest, ties away, as cvt.rna)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// c += a b in float32's accuracy (3xTF32), the small products first
+__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ah[4],
+                                           const uint32_t al[4], uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, low half
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int HD>
+// 2^x in one MUFU op (-inf -> +0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// cp.async of W bytes (4, 8 or 16) into shared memory; 16-byte pieces skip L1
+template <int W>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (W == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "n"(W)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until every cp.async group this thread committed has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int W> struct Piece;  // a register type of W bytes
+template <> struct Piece<16> { using type = uint4; };
+template <> struct Piece<8> { using type = uint2; };
+template <> struct Piece<4> { using type = uint32_t; };
+template <> struct Piece<2> { using type = unsigned short; };
+
+// Tile shapes per type and hd, each the fastest of those timed side by side
+// on the card (PERF.md): one block keeps a BQ x HD Q tile and two
+// stages of BK-row K and V tiles in shared memory.
+template <typename T, int HD>
 struct MmaTile {
-  static constexpr int BQ = 64;                  // q rows a block, 16 a warp
-  static constexpr int BK = HD > 128 ? 32 : 64;  // kv rows a tile
-  static constexpr int RS = HD + 8;  // smem row stride (bf16): 16-byte pad,
-                                     // so ldmatrix's 8 rows hit 8 bank groups
-  static constexpr int NT = BK / 8;  // S n-tiles (8 columns) a warp
-  static constexpr int OT = HD / 8;  // O n-tiles a warp
-  static constexpr int BYTES = (BQ + 2 * BK) * RS * 2;
+  static constexpr bool F32 = sizeof(T) == 4;
+  // 16-row m-tiles a warp: two at bf16 hd 32, so each K/V fragment feeds
+  // two products and a tile's fixed costs cover twice the scores
+  static constexpr int MT = !F32 && HD == 32 ? 2 : 1;
+  static constexpr int WARPS = !F32 && HD > 128 ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BQ = 16 * MT * WARPS;  // q rows a block
+  static constexpr int BK = F32 ? (HD <= 64 ? 64 : 32) : HD == 32 ? 128 : HD > 128 ? 32 : 64;
+  // blocks an SM in the launch bound: ptxas then allocates the registers
+  // the f32 tiles need (with none it chose 128 and spilled)
+  static constexpr int MIN_BLOCKS = F32 ? 2 : 1;
+  // shared-memory row stride (elements): bf16 rows 16 bytes apart in the
+  // bank groups, so ldmatrix's 8 rows hit 8 of them; f32 rows 4 banks
+  // apart, so a fragment's 8 rows x 4 columns hit all 32
+  static constexpr int RS = F32 ? HD + 4 : HD + 8;
+  static constexpr int NT = BK / 8;  // 8-column S tiles an m-tile
+  static constexpr int OT = HD / 8;  // 8-column O tiles an m-tile
+  static constexpr bool QREG = !F32 && HD <= 128;  // Q's fragments in registers
+  static constexpr int STAGE = BK * RS;  // elements of K (or V) in one stage
+  static constexpr int BYTES = (BQ + 4 * BK) * RS * static_cast<int>(sizeof(T));
   static_assert(HD % 16 == 0 && BK % 16 == 0, "mma tile shape");
+  static_assert(BYTES <= 232448, "shared memory");
 };
 
-// rows [row0, row0 + ROWS) of a (rows, HD) bf16 operand into shared memory,
-// 16 bytes a thread and step (vec) or element by element; rows at or past
-// n_valid are zero, so masked products stay finite
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t row_stride, int row0,
-                                          int n_valid, bool vec) {
-  constexpr int CH = HD / 8;
-  constexpr int RS = MmaTile<HD>::RS;
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += kThreads) {
-    const int r = idx / CH, c = (idx % CH) * 8;
-    union {
-      uint4 u;
-      unsigned short h[8];
-    } val;
-    val.u = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_valid) {
-      const __nv_bfloat16* p = src + static_cast<int64_t>(row0 + r) * row_stride + c;
-      if (vec) {
-        val.u = *reinterpret_cast<const uint4*>(p);
-      } else {
-        const unsigned short* ps = reinterpret_cast<const unsigned short*>(p);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) val.h[e] = ps[e];
-      }
+// rows [row0, row0 + ROWS) of a (rows, HD) operand into shared memory rows
+// RS elements apart, in W-byte pieces (cp.async for W >= 4); rows at or
+// past n_valid are stored as zeros, so masked products stay finite. When
+// the threads cover whole rows, each keeps one column and steps its
+// pointers by a constant, so a piece costs few instructions beside its copy.
+template <typename T, int HD, int ROWS, int RS, int NTHR, int W>
+__device__ __forceinline__ void load_tile_w(T* dst, const T* src, int64_t row_stride,
+                                            int row0, int n_valid) {
+  using P = typename Piece<W>::type;
+  constexpr int PER = W / static_cast<int>(sizeof(T));  // elements a piece
+  constexpr int PIECES = HD / PER;                     // pieces a row
+  auto piece = [&](T* d, const T* s, bool in) {
+    if (!in)
+      *reinterpret_cast<P*>(d) = P{};
+    else if constexpr (W >= 4)
+      cp_async<W>(d, s);
+    else
+      *reinterpret_cast<P*>(d) = *reinterpret_cast<const P*>(s);
+  };
+  if constexpr (NTHR % PIECES == 0) {
+    constexpr int STEP = NTHR / PIECES;  // rows a pass
+    const int r0 = static_cast<int>(threadIdx.x) / PIECES;
+    const int c = (static_cast<int>(threadIdx.x) % PIECES) * PER;
+    const T* s = src + static_cast<int64_t>(row0 + r0) * row_stride + c;
+    T* d = dst + r0 * RS + c;
+    const int64_t s_step = STEP * row_stride;
+#pragma unroll 4
+    for (int r = r0; r < ROWS; r += STEP, s += s_step, d += STEP * RS)
+      piece(d, s, row0 + r < n_valid);
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * PIECES; idx += NTHR) {
+      const int r = idx / PIECES, c = (idx % PIECES) * PER;
+      piece(dst + r * RS + c, src + static_cast<int64_t>(row0 + r) * row_stride + c,
+            row0 + r < n_valid);
     }
-    *reinterpret_cast<uint4*>(dst + r * RS + c) = val.u;
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq,
-    int Sk, int H, int group, int64_t sqb, int64_t sqs, int64_t sqh,
-    int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs,
-    int64_t svh, int causal, int vec, float scale) {
-  using F = MmaTile<HD>;
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);
-  __nv_bfloat16* Ks = Qs + F::BQ * F::RS;
-  __nv_bfloat16* Vs = Ks + F::BK * F::RS;
+template <typename T, int HD, int ROWS, int RS, int NTHR>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t row_stride,
+                                          int row0, int n_valid, int w) {
+  if (w == 16) {
+    load_tile_w<T, HD, ROWS, RS, NTHR, 16>(dst, src, row_stride, row0, n_valid);
+  } else if (w == 8) {
+    load_tile_w<T, HD, ROWS, RS, NTHR, 8>(dst, src, row_stride, row0, n_valid);
+  } else if (sizeof(T) == 4 || w == 4) {
+    load_tile_w<T, HD, ROWS, RS, NTHR, 4>(dst, src, row_stride, row0, n_valid);
+  } else {
+    if constexpr (sizeof(T) == 2)
+      load_tile_w<T, HD, ROWS, RS, NTHR, 2>(dst, src, row_stride, row0, n_valid);
+  }
+}
+
+// the max (or the sum) over one row's values of an accumulator tile, row
+// r = 0 (elements 0, 1) or 1 (2, 3), as a tree: no long dependent chain
+template <int NT, bool MAX>
+__device__ __forceinline__ float row_reduce(const float (&s)[NT][4], int r) {
+  float t[NT];
+#pragma unroll
+  for (int x = 0; x < NT; ++x)
+    t[x] = MAX ? fmaxf(s[x][2 * r], s[x][2 * r + 1]) : s[x][2 * r] + s[x][2 * r + 1];
+#pragma unroll
+  for (int w = 1; w < NT; w *= 2)
+#pragma unroll
+    for (int x = 0; x + w < NT; x += 2 * w) t[x] = MAX ? fmaxf(t[x], t[x + w]) : t[x] + t[x + w];
+  return t[0];
+}
+
+// One block per (head, q tile, batch row): BQ q rows of one head over
+// every K/V tile it needs, the next tile's copy in flight under the
+// current tile's products.
+template <typename T, int HD>
+__device__ __forceinline__ void flash_mma_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, int Sq, int Sk, int H, int group, int64_t sqb, int64_t sqs,
+    int64_t sqh, int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs,
+    int64_t svh, int causal, int w, float scale_log2, unsigned char* smem) {
+  using F = MmaTile<T, HD>;
+  constexpr int MT = F::MT;
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + F::BQ * F::RS;  // two stages
+  T* Vs = Ks + 2 * F::STAGE;   // two stages
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, tg = lane % 4;  // mma group and lane in the group
-  const int qt = causal ? static_cast<int>(gridDim.x) - 1 - static_cast<int>(blockIdx.x)
-                        : static_cast<int>(blockIdx.x);
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
-  const int q0 = qt * F::BQ;
-  const __nv_bfloat16* qb = q + b * sqb + h * sqh;
-  const __nv_bfloat16* kb = k + b * skb + hk * skh;
-  const __nv_bfloat16* vb = v + b * svb + hk * svh;
-  load_rows<HD, F::BQ>(Qs, qb, sqs, q0, Sq, vec);
+  const int h = blockIdx.x, b = blockIdx.z, hk = h / group;
+  const int n_qt = static_cast<int>(gridDim.y);
+  const int q0 = (causal ? n_qt - 1 - static_cast<int>(blockIdx.y)
+                         : static_cast<int>(blockIdx.y)) * F::BQ;
+  const T* qb = q + b * sqb + h * sqh;
+  const T* kb = k + b * skb + hk * skh;
+  const T* vb = v + b * svb + hk * svh;
+  const int kv_end = causal ? min(Sk, q0 + F::BQ) : Sk;
+  const int n_tiles = (kv_end + F::BK - 1) / F::BK;
 
-  // this lane's rows: row_g (accumulator elements 0, 1) and row_g + 8 (2, 3)
-  const int wrow = warp * 16;
-  const int row_g = q0 + wrow + g;
-  // ldmatrix row/column offsets of this lane (see the fragment layouts of
-  // mma.m16n8k16: A row-major from Q and P, B from K rows and, transposed,
-  // from V rows)
+  // tile t's K and V into stage t % 2, as one commit group
+  auto issue = [&](int t) {
+    if (t < n_tiles) {
+      const int st = t % 2;
+      load_tile<T, HD, F::BK, F::RS, F::THREADS>(Ks + st * F::STAGE, kb, sks, t * F::BK,
+                                                 Sk, w);
+      load_tile<T, HD, F::BK, F::RS, F::THREADS>(Vs + st * F::STAGE, vb, svs, t * F::BK,
+                                                 Sk, w);
+    }
+    cp_async_commit();
+  };
+  load_tile<T, HD, F::BQ, F::RS, F::THREADS>(Qs, qb, sqs, q0, Sq, w);
+  issue(0);  // with Q: one group
+
+  // the warp's rows: m-tile mt is rows wrow + 16 mt .. + 15; this lane's
+  // rows in it are + g (accumulator elements 0, 1) and + g + 8 (2, 3)
+  const int wrow = 16 * MT * warp;
+  const int warp_last = q0 + wrow + 16 * MT - 1;  // tiles past it are all masked here
+  // ldmatrix row/column offsets of this lane (bf16; see the fragment
+  // layouts of mma.m16n8k16: A row-major from Q and P, B from K rows and,
+  // transposed, from V rows)
   const int a_row = (lane % 8) + ((lane / 8) % 2) * 8, a_col = (lane / 16) * 8;
   const int k_row = (lane % 8) + (lane / 16) * 8, k_col = ((lane / 8) % 2) * 8;
 
-  float acc[F::OT][4];
+  float acc[MT][F::OT][4];
 #pragma unroll
-  for (int i = 0; i < F::OT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  const int kv_end = causal ? min(Sk, q0 + F::BQ) : Sk;
-  for (int k0 = 0; k0 < kv_end; k0 += F::BK) {
-    __syncthreads();  // Q is stored; the previous tile's K and V are consumed
-    load_rows<HD, F::BK>(Ks, kb, sks, k0, Sk, vec);
-    load_rows<HD, F::BK>(Vs, vb, svs, k0, Sk, vec);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x BK columns
-    float s[F::NT][4];
-#pragma unroll
-    for (int j = 0; j < F::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kq = 0; kq < HD / 16; ++kq) {
-      uint32_t a[4];
-      ldmatrix_x4(a, Qs + (wrow + a_row) * F::RS + kq * 16 + a_col);
-#pragma unroll
-      for (int jp = 0; jp < F::BK / 16; ++jp) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, Ks + (jp * 16 + k_row) * F::RS + kq * 16 + k_col);
-        mma_bf16(s[2 * jp], a, bk[0], bk[1]);
-        mma_bf16(s[2 * jp + 1], a, bk[2], bk[3]);
-      }
-    }
-
-    // scale, mask, online softmax (a row's 4 lanes share it by shuffles)
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < F::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row_g + (e / 2) * 8;
-        const int col = k0 + 8 * j + 2 * tg + (e % 2);
-        const bool ok = col < Sk && (!causal || row >= col);
-        s[j][e] = ok ? s[j][e] * scale : kNegInf;
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < F::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m[e / 2]);
-        s[j][e] = p;
-        sum[e / 2] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = alpha[r] * l[r] + sum[r];
-    }
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int i = 0; i < F::OT; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e / 2];
+      for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.f;
+  float m[MT][2], l[MT][2];  // running max (log2 domain, scaled); this lane's row sums
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[mt][r] = -INFINITY;
+      l[mt][r] = 0.f;
+    }
+  uint32_t qf[MT][F::QREG ? HD / 16 : 1][4];
 
-    // O += P V: P's accumulator tiles are the A fragments of the next mma
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * F::BK;
+    cp_async_wait_all();
+    __syncthreads();  // tile j has landed for all; every warp is done with j - 1
+    issue(j + 1);     // into the stage tile j - 1 held
+    if constexpr (F::QREG) {
+      if (j == 0) {
 #pragma unroll
-    for (int kk = 0; kk < F::BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, Vs + (kk * 16 + a_row) * F::RS + np * 16 + a_col);
-        mma_bf16(acc[2 * np], a, bv[0], bv[1]);
-        mma_bf16(acc[2 * np + 1], a, bv[2], bv[3]);
+          for (int kq = 0; kq < HD / 16; ++kq)
+            ldmatrix_x4(qf[mt][kq], Qs + (wrow + 16 * mt + a_row) * F::RS + kq * 16 + a_col);
+      }
+    }
+    if (causal && k0 > warp_last) continue;  // all masked for this warp
+    const T* Kt = Ks + (j % 2) * F::STAGE;
+    const T* Vt = Vs + (j % 2) * F::STAGE;
+
+    // S = Q K^T for this warp's m-tiles x BK columns
+    float s[MT][F::NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int x = 0; x < F::NT; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][x][e] = 0.f;
+    if constexpr (F::F32) {
+#pragma unroll
+      for (int kq = 0; kq < HD / 8; ++kq) {
+        // A: rows g, g + 8 x columns tg, tg + 4 of this 8-wide k step
+        const T* qr = Qs + (wrow + g) * F::RS + kq * 8 + tg;
+        uint32_t ah[4], al[4];
+        split_tf32(qr[0], ah[0], al[0]);
+        split_tf32(qr[8 * F::RS], ah[1], al[1]);
+        split_tf32(qr[4], ah[2], al[2]);
+        split_tf32(qr[8 * F::RS + 4], ah[3], al[3]);
+#pragma unroll
+        for (int x = 0; x < F::NT; ++x) {
+          // B (k, n) = K[n][k]: k = tg and tg + 4, n = g
+          const T* kr = Kt + (x * 8 + g) * F::RS + kq * 8 + tg;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(kr[0], bh0, bl0);
+          split_tf32(kr[4], bh1, bl1);
+          mma_3xtf32(s[0][x], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kq = 0; kq < HD / 16; ++kq) {
+        uint32_t a[MT][4];
+        if constexpr (!F::QREG) ldmatrix_x4(a[0], Qs + (wrow + a_row) * F::RS + kq * 16 + a_col);
+#pragma unroll
+        for (int jp = 0; jp < F::BK / 16; ++jp) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, Kt + (jp * 16 + k_row) * F::RS + kq * 16 + k_col);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            if constexpr (F::QREG) {
+              mma_bf16(s[mt][2 * jp], qf[mt][kq], bk[0], bk[1]);
+              mma_bf16(s[mt][2 * jp + 1], qf[mt][kq], bk[2], bk[3]);
+            } else {
+              mma_bf16(s[mt][2 * jp], a[mt], bk[0], bk[1]);
+              mma_bf16(s[mt][2 * jp + 1], a[mt], bk[2], bk[3]);
+            }
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      // the mask, only on tiles that cross this m-tile's diagonal or Sk
+      const int row_g = q0 + wrow + 16 * mt + g;
+      if (k0 + F::BK > Sk || (causal && k0 + F::BK - 1 > row_g - g)) {
+#pragma unroll
+        for (int x = 0; x < F::NT; ++x)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = row_g + (e / 2) * 8;
+            const int col = k0 + 8 * x + 2 * tg + (e % 2);
+            if (col >= Sk || (causal && row < col)) s[mt][x][e] = -INFINITY;
+          }
+      }
+
+      // online softmax in registers: p = 2^(s * scale * log2 e - m). The
+      // reference max m of the warp's rows moves only when some row's max
+      // passes it by more than 8 (p then stays below 2^8), so most tiles
+      // skip rescaling O; the result is the same function. Key 0 is live
+      // for every row and the first tile is never skipped, so m is finite
+      // from there on.
+      float mx[2];
+      bool grow = false;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = row_reduce<F::NT, true>(s[mt], r);
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] *= scale_log2;
+        grow = grow || mx[r] > m[mt][r] + 8.f;
+      }
+      if (__any_sync(0xffffffffu, grow)) {
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m[mt][r], mx[r]);
+          alpha[r] = ex2(m[mt][r] - (m_new == -INFINITY ? 0.f : m_new));
+          m[mt][r] = m_new;
+          l[mt][r] *= alpha[r];
+        }
+#pragma unroll
+        for (int i = 0; i < F::OT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][i][e] *= alpha[e / 2];
+      }
+      float neg_m[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) neg_m[r] = m[mt][r] == -INFINITY ? 0.f : -m[mt][r];
+#pragma unroll
+      for (int x = 0; x < F::NT; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[mt][x][e] = ex2(fmaf(s[mt][x][e], scale_log2, neg_m[e / 2]));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[mt][r] += row_reduce<F::NT, false>(s[mt], r);
+    }
+
+    // O += P V: P's accumulator tiles are the A fragments of the products
+    if constexpr (F::F32) {
+#pragma unroll
+      for (int x = 0; x < F::NT; ++x) {
+        // A (g, k = tg) is P at kv 2tg, A (g, k = tg + 4) P at kv 2tg + 1
+        uint32_t ph[4], pl[4];
+        split_tf32(s[0][x][0], ph[0], pl[0]);
+        split_tf32(s[0][x][2], ph[1], pl[1]);
+        split_tf32(s[0][x][1], ph[2], pl[2]);
+        split_tf32(s[0][x][3], ph[3], pl[3]);
+#pragma unroll
+        for (int n = 0; n < F::OT; ++n) {
+          // B (k, n = g) = V[kv][8n + g] at the same kv rows 2tg, 2tg + 1
+          const T* vr = Vt + (x * 8 + 2 * tg) * F::RS + n * 8 + g;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(vr[0], bh0, bl0);
+          split_tf32(vr[F::RS], bh1, bl1);
+          mma_3xtf32(acc[0][n], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < F::BK / 16; ++kk) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          a[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+          a[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+          a[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+          a[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+        }
+#pragma unroll
+        for (int np = 0; np < HD / 16; ++np) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, Vt + (kk * 16 + a_row) * F::RS + np * 16 + a_col);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(acc[mt][2 * np], a[mt], bv[0], bv[1]);
+            mma_bf16(acc[mt][2 * np + 1], a[mt], bv[2], bv[3]);
+          }
+        }
       }
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_g + 8 * r;
-    if (row >= Sq) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    uint32_t* orow = reinterpret_cast<uint32_t*>(
-        o + ((static_cast<int64_t>(b) * Sq + row) * H + h) * HD);
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int i = 0; i < F::OT; ++i)
-      orow[(8 * i + 2 * tg) / 2] = pack_bf16(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
-  }
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[mt][r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const int row = q0 + wrow + 16 * mt + g + 8 * r;
+      if (row >= Sq) continue;
+      const float inv = 1.f / fmaxf(sum, 1e-30f);
+      T* orow = o + ((static_cast<int64_t>(b) * Sq + row) * H + h) * HD + 2 * tg;
+#pragma unroll
+      for (int i = 0; i < F::OT; ++i) {
+        const float x0 = acc[mt][i][2 * r] * inv, x1 = acc[mt][i][2 * r + 1] * inv;
+        if constexpr (F::F32)
+          *reinterpret_cast<float2*>(orow + 8 * i) = make_float2(x0, x1);
+        else
+          *reinterpret_cast<uint32_t*>(orow + 8 * i) = pack_bf16(x0, x1);
+      }
+    }
 }
 
 template <int HD>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int B,
-                 int Sq, int Sk, int H, int Hkv, int64_t sqb, int64_t sqs,
-                 int64_t sqh, int64_t skb, int64_t sks, int64_t skh,
-                 int64_t svb, int64_t svs, int64_t svh, int causal,
-                 cudaStream_t stream) {
-  using F = FlashTile<HD>;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::BYTES);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const dim3 grid((Sq + F::BQ - 1) / F::BQ, H, B);
-  flash_kernel<HD><<<grid, kThreads, F::BYTES, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, H / Hkv, sqb,
-      sqs, sqh, skb, sks, skh, svb, svs, svh, causal, 1.f / sqrtf(static_cast<float>(HD)));
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(MmaTile<__nv_bfloat16, HD>::THREADS,
+                                  MmaTile<__nv_bfloat16, HD>::MIN_BLOCKS) flash_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq, int Sk,
+    int H, int group, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb, int64_t sks,
+    int64_t skh, int64_t svb, int64_t svs, int64_t svh, int causal, int w,
+    float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  flash_mma_body<__nv_bfloat16, HD>(q, k, v, o, Sq, Sk, H, group, sqb, sqs, sqh, skb, sks,
+                                    skh, svb, svs, svh, causal, w, scale_log2, smem_mma);
 }
 
 template <int HD>
+__global__ void __launch_bounds__(MmaTile<float, HD>::THREADS,
+                                  MmaTile<float, HD>::MIN_BLOCKS) flash_fp32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, int Sq, int Sk, int H, int group, int64_t sqb, int64_t sqs,
+    int64_t sqh, int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs,
+    int64_t svh, int causal, int w, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_fp32[];
+  flash_mma_body<float, HD>(q, k, v, o, Sq, Sk, H, group, sqb, sqs, sqh, skb, sks, skh,
+                            svb, svs, svh, causal, w, scale_log2, smem_fp32);
+}
+
+template <typename T, int HD>
+const void* mma_kernel() {
+  if constexpr (sizeof(T) == 4)
+    return reinterpret_cast<const void*>(flash_fp32_kernel<HD>);
+  else
+    return reinterpret_cast<const void*>(flash_mma_kernel<HD>);
+}
+
+// the widest piece (16, 8, 4 or 2 bytes, at least one element) that
+// divides every base address and every stride in bytes
+int load_width(const void* q, const void* k, const void* v, const int64_t (&strides)[9],
+               int elt) {
+  uint64_t bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                  reinterpret_cast<uintptr_t>(v);
+  for (int64_t s : strides) bits |= static_cast<uint64_t>(s) * elt;
+  int w = 16;
+  while (w > elt && bits % w != 0) w /= 2;
+  return w;
+}
+
+// flash_mma_kernel (bf16) or flash_fp32_kernel (float) at head dim HD
+template <typename T, int HD>
 int launch_flash_mma(const void* q, const void* k, const void* v, void* o, int B,
                      int Sq, int Sk, int H, int Hkv, int64_t sqb, int64_t sqs,
                      int64_t sqh, int64_t skb, int64_t sks, int64_t skh,
                      int64_t svb, int64_t svs, int64_t svh, int causal,
                      cudaStream_t stream) {
-  using F = MmaTile<HD>;
+  using F = MmaTile<T, HD>;
+  const void* kernel = mma_kernel<T, HD>();
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::BYTES);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  // 16-byte loads need 16-byte aligned rows: the base pointers and every
-  // stride a multiple of 8 elements (always so for contiguous projections)
-  const bool vec = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                     reinterpret_cast<uintptr_t>(v)) % 16 == 0) &&
-                   ((sqb | sqs | sqh | skb | sks | skh | svb | svs | svh) % 8 == 0);
-  const dim3 grid((Sq + F::BQ - 1) / F::BQ, H, B);
-  flash_mma_kernel<HD><<<grid, kThreads, F::BYTES, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, H,
-      H / Hkv, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, causal, vec ? 1 : 0,
-      1.f / sqrtf(static_cast<float>(HD)));
+  const int64_t strides[9] = {sqb, sqs, sqh, skb, sks, skh, svb, svs, svh};
+  int w = load_width(q, k, v, strides, static_cast<int>(sizeof(T)));
+  const int n_qt = (Sq + F::BQ - 1) / F::BQ;
+  if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);  // gridDim.y
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(o);
+  int group = H / Hkv;
+  float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
+  void* args[] = {&qt, &kt, &vt, &ot, &Sq, &Sk, &H, &group, &sqb, &sqs,
+                  &sqh, &skb, &sks, &skh, &svb, &svs, &svh, &causal, &w, &scale_log2};
+  const cudaError_t e = cudaLaunchKernel(kernel, dim3(H, n_qt, B), dim3(F::THREADS), args,
+                                         F::BYTES, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1418,7 +1537,7 @@ int launch_flash_wgmma256(const void* q, const void* k, const void* v, void* o, 
 
 // The dispatch rule between the hand-written variants (kernels/
 // flash_attention.py::flash_variant is the same rule in Python, tested on
-// the CPU): f32 -> flash_kernel on the fp32 cores; bf16 with 16-byte
+// the CPU): f32 -> flash_fp32_kernel (3xTF32); bf16 with 16-byte
 // aligned bases and strides (TMA's requirement) at hd 64 or 128 ->
 // flash_wgmma_kernel, at hd 256 -> flash_wgmma256_kernel; any other bf16
 // (hd 16, 32; strides TMA cannot take) -> flash_mma_kernel.
@@ -1443,8 +1562,9 @@ int dispatch_flash(int variant, int hd, const void* q, const void* k, const void
   q, k, v, o, B, Sq, Sk, H, Hkv, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, causal, stream
 #define REPRO_FLASH(HD_)                                       \
   case HD_:                                                    \
-    return variant == kFlashFp32 ? launch_flash<HD_>(REPRO_FLASH_ARGS) \
-                                 : launch_flash_mma<HD_>(REPRO_FLASH_ARGS);
+    return variant == kFlashFp32                                 \
+               ? launch_flash_mma<float, HD_>(REPRO_FLASH_ARGS)  \
+               : launch_flash_mma<__nv_bfloat16, HD_>(REPRO_FLASH_ARGS);
   if (variant == kFlashWgmma) {
     if (hd == 64) return launch_flash_wgmma<64>(REPRO_FLASH_ARGS);
     if (hd == 128) return launch_flash_wgmma<128>(REPRO_FLASH_ARGS);
@@ -1836,7 +1956,7 @@ bool supported_hd(int hd) {
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
 // dimension of every tensor is contiguous and o is a contiguous
 // (B, Sq, H, hd) tensor. *variant receives the kernel that was launched
-// (0 flash_kernel, 1 flash_mma_kernel, 2 flash_wgmma_kernel, 3
+// (0 flash_fp32_kernel, 1 flash_mma_kernel, 2 flash_wgmma_kernel, 3
 // flash_wgmma256_kernel). Returns a cudaError_t value (0 = launched).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,

@@ -11,8 +11,8 @@ The kernel has four hand-written variants, chosen by one rule
 ``flash_wgmma`` (bf16 at hd 64 or 128 with 16-byte aligned bases and
 strides: wgmma fed by a TMA ring), ``flash_wgmma256`` (the same at hd 256:
 a producer warpgroup hands its registers to the consumers),
-``flash_mma`` (any other bf16: ``mma.sync``) and ``flash_fp32`` (float32,
-on the fp32 cores). There is no
+``flash_mma`` (any other bf16: ``mma.sync`` fed by ``cp.async``) and
+``flash_fp32`` (float32, on the tensor cores by 3xTF32). There is no
 fallback between them: the C entry point reports the variant it launched,
 and the wrapper raises if that is not the rule's.
 

@@ -40,6 +40,9 @@ def _f32(x):
     (1, 256, 256, 8, 8, 32, True),
     (2, 64, 64, 4, 1, 128, False),
     (1, 128, 128, 2, 2, 256, True),  # gemma-7b's head dim
+    (1, 128, 128, 4, 2, 16, True),  # the smoke configs' smallest head dim
+    (2, 64, 128, 4, 2, 32, False),  # Sq < Sk and Sq > Sk, no mask
+    (2, 128, 64, 4, 1, 32, False),
 ])
 def test_flash_matches_jax(dtype, B, Sq, Sk, H, Hkv, hd, causal):
     (tq, jq), (tk, jk), (tv, jv) = (_rand(s, i, dtype) for i, s in enumerate(

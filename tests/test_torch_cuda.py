@@ -236,23 +236,93 @@ def test_flash_serving_shape_takes_wgmma(cuda, shape, variant):
     assert {n: after[n] - before[n] for n in after} == want
 
 
-@pytest.mark.parametrize("hd", [64, 256])
-def test_flash_unaligned_view_takes_mma(cuda, hd):
+@pytest.mark.parametrize("pad", [1, 2, 4])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_flash_unaligned_view_takes_mma(cuda, hd, pad):
     """A view whose row stride is not a multiple of 8 elements is not
     TMA-able: the rule sends it to the mma.sync variant, which agrees
-    with the plain version."""
+    with the plain version. ``pad`` elements after each row make the
+    widest piece that divides every stride 2, 4 or 8 bytes."""
     from repro_torch.kernels import flash_attention, ops, ref
 
-    buf = _randn((2, 100, 8 * hd + 4), 20, torch.bfloat16, cuda)
+    buf = _randn((2, 100, 8 * hd + pad), 20, torch.bfloat16, cuda)
     heads = buf[..., :8 * hd].unflatten(-1, (8, hd))
     q, k, v = heads[:, :, :4], heads[:, :, 4:6], heads[:, :, 6:]
     before = flash_attention.launches["flash_mma"]
     out = ops.flash_attention(q, k, v)
+    again = ops.flash_attention(q, k, v)
     want = ref.mha_ref(q, k, v)
     torch.cuda.synchronize()
-    assert flash_attention.launches["flash_mma"] == before + 1
+    assert flash_attention.launches["flash_mma"] == before + 2
     tol = ATTN_TOL[torch.bfloat16]
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, again)
+
+
+# the mma.sync variants of B3: flash_fp32 (every float32 call, also through
+# a view with an odd row stride: 4-byte pieces) and flash_mma (bf16 that
+# the wgmma variants do not take: contiguous at hd 16 and 32, and at every
+# hd through a view with an odd row stride or a base 2 bytes off, which
+# leave only 2-byte loads)
+MMA_KINDS = {"f32": (16, 32, 64, 128, 256), "f32-odd-stride": (16, 32, 64, 128, 256),
+             "bf16": (16, 32), "bf16-odd-stride": (16, 32, 64, 128, 256),
+             "bf16-shifted-base": (16, 32, 64, 128, 256)}
+MMA_CASES = [(kind, hd) for kind, hds in MMA_KINDS.items() for hd in hds]
+
+
+def _mma_inputs(kind, B, Sq, Sk, H, Hkv, hd, seed, dev):
+    """q (B, Sq, H, hd), k/v (B, Sk, Hkv, hd) of ``kind``: contiguous, or
+    views of one fused (B, max(Sq, Sk), H + 2 Hkv, hd) projection whose
+    rows are one element longer, or which starts one element into its
+    buffer."""
+    dtype = torch.float32 if kind.startswith("f32") else torch.bfloat16
+    if "-" not in kind:
+        return (_randn((B, Sq, H, hd), seed, dtype, dev),
+                _randn((B, Sk, Hkv, hd), seed + 1, dtype, dev),
+                _randn((B, Sk, Hkv, hd), seed + 2, dtype, dev))
+    S, width = max(Sq, Sk), (H + 2 * Hkv) * hd
+    if kind.endswith("odd-stride"):
+        heads = _randn((B, S, width + 1), seed, dtype, dev)[..., :width]
+    else:
+        heads = _randn((B * S * width + 1,), seed, dtype, dev)[1:].view(B, S, width)
+    heads = heads.unflatten(-1, (H + 2 * Hkv, hd))
+    return heads[:, :Sq, :H], heads[:, :Sk, H:H + Hkv], heads[:, :Sk, H + Hkv:]
+
+
+def _check_mma(kind, q, k, v, causal):
+    from repro_torch.kernels import flash_attention, ops, ref
+
+    variant = "flash_fp32" if kind.startswith("f32") else "flash_mma"
+    assert flash_attention.variant_of(q, k, v) == variant
+    before = flash_attention.launches[variant]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    again = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.mha_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches[variant] == before + 2
+    tol = ATTN_TOL[q.dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 4, 7])
+@pytest.mark.parametrize("Sq", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("kind,hd", MMA_CASES)
+def test_flash_mma_variants_match_plain(cuda, kind, hd, Sq, g, causal):
+    """Ragged and exact q and kv tiles (16 rows a warp, 64 or 128 a
+    block), GQA groups, with and without the causal mask."""
+    Hkv = 2
+    _check_mma(kind, *_mma_inputs(kind, 2, Sq, Sq, g * Hkv, Hkv, hd, 30, cuda),
+               causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk", [(63, 200), (200, 63), (1, 65), (1000, 129)])
+@pytest.mark.parametrize("kind,hd", MMA_CASES)
+def test_flash_mma_variants_cross_lengths(cuda, kind, hd, Sq, Sk, causal):
+    """Sq != Sk both ways: under the causal mask row i sees keys <= i."""
+    _check_mma(kind, *_mma_inputs(kind, 2, Sq, Sk, 8, 2, hd, 40, cuda), causal)
 
 
 # the hd-256 wgmma variant of B3 (gemma-7b's head dim): ragged and exact q

@@ -12,7 +12,9 @@ directory ``.gitignore`` lists), so two versions of the kernels can be
 timed in turns inside one process tree on one card: old, new, new, old.
 Each run prints one JSON line: the card, its power limit, and per case the
 kernel's median device time per call (CUDA events, the stream held by a
-sleep kernel while the host enqueues) and SDPA's.
+sleep kernel while the host enqueues), the B3 variant it ran, and SDPA's
+time. A prefill case is bf16 or f32, on contiguous tensors or on views of
+one fused projection whose row stride TMA cannot take (``view``).
 
 Decode is timed warm (one (q, k, v) set, whose cache of 11 MB (phi3) or
 36 MB (gemma-7b) stays in the 50 MB L2 across calls) and cold (calls
@@ -30,13 +32,24 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import device_ms, graph_ms  # noqa: E402  (CUDA-event timers)
+from chip_smoke import device_ms, graph_ms, prefill_inputs  # noqa: E402
 
-# B, S, H, Hkv, hd: phi3's serving shape and its neighbours, internvl2's
-# heads, gemma-7b's heads at S = 512 (its serving prefill) and 2048
-FLASH_CASES = [(4, 512, 40, 10, 128), (4, 2048, 40, 10, 128),
-               (4, 1000, 40, 10, 128), (4, 512, 14, 2, 64),
-               (4, 512, 16, 16, 256), (4, 2048, 16, 16, 256)]
+# B, S, H, Hkv, hd, dtype, view: phi3's serving shape and its neighbours,
+# internvl2's heads, gemma-7b's heads at S = 512 (its serving prefill) and
+# 2048 (the wgmma variants); gemma-7b's heads through an unaligned view and
+# hd 32 (flash_mma); phi3's and internvl2's heads in float32 (flash_fp32)
+FLASH_CASES = [(4, 512, 40, 10, 128, "bf16", False),
+               (4, 2048, 40, 10, 128, "bf16", False),
+               (4, 1000, 40, 10, 128, "bf16", False),
+               (4, 512, 14, 2, 64, "bf16", False),
+               (4, 512, 16, 16, 256, "bf16", False),
+               (4, 2048, 16, 16, 256, "bf16", False),
+               (4, 512, 16, 16, 256, "bf16", True),
+               (4, 2048, 16, 16, 32, "bf16", False),
+               (4, 2048, 16, 16, 32, "bf16", True),
+               (4, 512, 40, 10, 128, "f32", False),
+               (4, 2048, 40, 10, 128, "f32", False),
+               (4, 512, 14, 2, 64, "f32", False)]
 # (B, S_max, H, Hkv, hd), cur_len values: phi3's and gemma-7b's serving
 # caches (S_max = 512 + 32)
 DECODE_CASES = [((4, 544, 40, 10, 128), (271, 543)),
@@ -62,6 +75,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 SDPA in full float32
 
     def randn(shape, seed):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -69,9 +83,9 @@ def main():
 
     res = {"label": args.label, "src": args.src, "card": smi,
            "flash": [], "decode": []}
-    for i, (B, S, H, Hkv, hd) in enumerate(FLASH_CASES):
-        qkv = [(randn((B, S, H, hd), 3 * i), randn((B, S, Hkv, hd), 3 * i + 1),
-                randn((B, S, Hkv, hd), 3 * i + 2))]
+    for i, (B, S, H, Hkv, hd, dt, view) in enumerate(FLASH_CASES):
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+        qkv = [prefill_inputs(B, S, H, Hkv, hd, dtype, view, 3 * i)]
         n = 20 if S > 1000 else 60
 
         def sdpa(q, k, v):
@@ -83,7 +97,7 @@ def main():
         ms = device_ms(flash_attention.flash_attention, qkv, n, 500_000_000)[0]
         ran = [k for k, c in flash_attention.launches.items()
                if k != "flash_attention" and c > before.get(k, 0)]
-        res["flash"].append(dict(shape=[B, S, H, Hkv, hd], ms=ms,
+        res["flash"].append(dict(shape=[B, S, H, Hkv, hd], dtype=dt, view=view, ms=ms,
                                  sdpa_ms=device_ms(sdpa, qkv, n, 500_000_000)[0],
                                  variant=ran))
         del qkv
