@@ -17,8 +17,13 @@ line is printed only when every phase passed):
   2 each kernel vs its plain version at the engine shape (T=2048 tasks,
     R=64 slots, d=128, N=10^6; ~25% dummies), both metrics, then a padded
     T; per-launch device time (CUDA events, median of 240 launches over
-    128 task sets, so gathered rows are not served from the 50 MB L2),
-    the plain version's time and the bound
+    128 task sets, so gathered rows are not served from the 50 MB L2, and
+    back to back: one event pair around the 240, over the count), the plain
+    version's time and the bound; the same at the serving pool's shape
+    (N=2000, d=64, R=16, T=512); then the lane sweep, G in {1, 4, 16, 32}
+    lanes in one launch (each lane 250,000 rows of the corpus, its own
+    ids), with lane g of each launch held bit-equal to a G=1 launch on
+    lane g; and the launch floor, a one-element add timed both ways
   3 the pool at full size: the quickstart's stream over 1024 queries,
     drained; recall@10 against exact kNN on the card; the same stream
     through the port on the CPU over the same index for comparison
@@ -129,26 +134,33 @@ def quickstart_stream(n, seed=0):
 
 def device_ms(fn, arg_sets, n=240, hold_cycles=2_000_000_000):
     """Device time per call (ms): (median of a CUDA event pair around each
-    call, first start to last end over ``n``). The stream is held by a
-    sleep kernel while the host enqueues, so the events time the device
-    work back to back, not the host's launch gaps."""
+    call, back to back: one event pair around ``n`` calls, over ``n``).
+    The stream is held by a sleep kernel while the host enqueues, so the
+    events time the device work, not the host's launch gaps."""
     import torch
 
     for args in arg_sets[:4]:
         fn(*args)
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+           torch.cuda.Event(enable_timing=True)) for _ in range(n + 1)]
     # ~1 s of GPU clock: longer than the host takes to enqueue n calls of
     # the slowest function timed here (~0.1 s for 240 plain one-hot calls)
     torch.cuda._sleep(hold_cycles)
-    for i, (a, b) in enumerate(ev):
+    for i, (a, b) in enumerate(ev[:n]):
         a.record()
         fn(*arg_sets[i % len(arg_sets)])
         b.record()
     torch.cuda.synchronize()
-    times = sorted(a.elapsed_time(b) for a, b in ev)
-    return times[n // 2], ev[0][0].elapsed_time(ev[-1][1]) / n
+    times = sorted(a.elapsed_time(b) for a, b in ev[:n])
+    start, end = ev[n]
+    torch.cuda._sleep(hold_cycles)
+    start.record()
+    for i in range(n):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return times[n // 2], start.elapsed_time(end) / n
 
 
 def graph_ms(fn, arg_sets, n, hold_cycles):
@@ -184,8 +196,124 @@ def host_ms(fn, arg_sets, n=240):
     return (time.perf_counter() - t0) * 1e3 / n
 
 
+def floor_ms():
+    """The launch floor: a one-element in-place add on the card, timed as
+    the kernels are (median event pair, back to back)."""
+    import torch
+
+    one = torch.zeros(1, device="cuda")
+    return device_ms(lambda x: x.add_(1.0), [(one,)])
+
+
+def lane_sets(dbs, q, T, n_sets, seed):
+    """``n_sets`` task sets over the lanes of ``dbs`` (G, N, d): each lane
+    its own random ids in [0, N) with 25% dummies, slots in the engine's
+    layout (slot s owns T / R consecutive tasks)."""
+    import torch
+
+    G, N = dbs.shape[:2]
+    R = q.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    slot = torch.arange(R, dtype=torch.int32, device="cuda").repeat_interleave(
+        T // R).expand(G, T).contiguous()
+    sets = []
+    for _ in range(n_sets):
+        ids = torch.randint(0, N, (G, T), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        ids[torch.rand((G, T), generator=gen, device="cuda") < 0.25] = -1
+        sets.append((dbs, q, ids, slot))
+    return sets
+
+
+def distance_bound(sets, flop_per_elem):
+    """(bound ms, what binds, bytes): the bytes the function must move for
+    these inputs (each lane's rows its valid tasks reference, once; the
+    query rows they use; ids, slots and output) over the HBM rate, vs its
+    flops over the fp32 peak; averaged over the sets."""
+    import numpy as np
+    import torch
+
+    nbytes, nflops = [], []
+    for db, q, ids, slot in sets:
+        ids2 = ids.reshape(-1, ids.shape[-1])  # (G, T); (1, T) for (T,)
+        slot2 = slot.reshape(ids2.shape)
+        lane = torch.arange(ids2.shape[0], device=ids.device)[:, None]
+        v = ids2 >= 0
+        rows = torch.unique((lane * db.shape[-2] + ids2)[v]).numel()
+        qrows = torch.unique((lane * q.shape[-2] + slot2)[v]).numel()
+        d = db.shape[-1]
+        nbytes.append((rows + qrows) * d * 4 + 3 * ids.numel() * 4)
+        nflops.append(int(v.sum()) * d * flop_per_elem)
+    nbytes, nflops = float(np.mean(nbytes)), float(np.mean(nflops))
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = nflops / FP32_FLOPS * 1e3
+    return (max(bound_bytes, bound_ops),
+            "bytes" if bound_bytes >= bound_ops else "operations", nbytes)
+
+
+def check_distance(name, kern, plain, sets, metric):
+    """Kernel against its plain version on the first 8 sets: within atol
+    1e-3 + rtol 1e-5 (float32 sums of d terms in another order), dummies
+    exactly 1e30, two runs the same bits; then the first set padded with
+    256 dummies a lane changes nothing before them; and, for lanes, lane g
+    of the launch has the bits of a G = 1 launch on lane g. Returns the
+    largest error."""
+    import torch
+
+    max_err, first = 0.0, None
+    for args in sets[:8]:
+        valid = args[2] >= 0
+        out = kern(*args, metric=metric)
+        want = plain(*args, metric=metric)
+        again = kern(*args, metric=metric)
+        torch.cuda.synchronize()
+        err = (out - want)[valid].abs()
+        check(bool((err <= 1e-3 + 1e-5 * want[valid].abs()).all()),
+              f"{name} {metric}: max |kernel - plain| {err.max().item()}")
+        check(bool((out[~valid] == 1e30).all()),
+              f"{name} {metric}: dummies are not exactly 1e30")
+        check(torch.equal(out, again), f"{name} {metric}: two runs differ")
+        max_err = max(max_err, err.max().item())
+        first = out if first is None else first
+    db, q, ids, slot = sets[0]
+    T = ids.shape[-1]
+    pad_ids = torch.cat([ids, ids.new_full(ids.shape[:-1] + (256,), -1)], -1)
+    pad_slot = torch.cat([slot, slot.new_zeros(slot.shape[:-1] + (256,))], -1)
+    padded = kern(db, q, pad_ids, pad_slot, metric=metric)
+    torch.cuda.synchronize()
+    check(torch.equal(padded[..., :T], first)
+          and bool((padded[..., T:] == 1e30).all()),
+          f"{name} {metric}: padded T changes the results")
+    if ids.dim() == 2:
+        for g in range(ids.shape[0]):
+            one = kern(db[g:g + 1], q[g:g + 1], ids[g:g + 1], slot[g:g + 1],
+                       metric=metric)
+            torch.cuda.synchronize()
+            check(torch.equal(one[0], first[g]),
+                  f"{name} {metric}: lane {g} of {ids.shape[0]} differs from "
+                  "its own launch")
+    return max_err
+
+
+def time_distance(fn, sets):
+    """``device_ms`` of l2 calls of ``fn`` over the sets (a 0.25 s hold:
+    the host enqueues 240 plain one-hot calls in ~20 ms)."""
+    return device_ms(lambda *a: fn(*a, metric="l2"), sets,
+                     hold_cycles=500_000_000)
+
+
+LANES = (1, 4, 16, 32)  # phase 2's lane sweep
+SHARDS = 4  # phase 3's corpus cut into 4 shards of 250,000 rows
+
+
 def phase_kernels(db_t, queries):
-    """Phase 2: both kernels vs their plain versions at the engine shape."""
+    """Phase 2: both kernels vs their plain versions. G = 1 at the engine
+    shape (T=2048 tasks, R=64 slots, d=128, N=10^6; ~25% dummies, 128 task
+    sets so gathered rows are not served from the 50 MB L2) and at the
+    serving pool's (N=2000, d=64, R=16, T=512); then the lane sweep, G in
+    {1, 4, 16, 32} lanes in one launch at T=2048, R=64, d=128, the lanes
+    the 4 shards of the corpus (250,000 rows each) repeated up to 8 times
+    (4 shards x 8 replicas; G=32 holds 4.1 GB), each lane its own ids."""
     import numpy as np
     import torch
 
@@ -206,73 +334,67 @@ def phase_kernels(db_t, queries):
              "distance_onehot": ref.distance_tasks_onehot_ref}
     kern = {"distance_slot_gather": distance.distance_slot_gather,
             "distance_onehot": distance.distance_onehot}
-    dummy = torch.tensor(1e30, dtype=torch.float32, device=dev)
-    results, outs = {}, {}
-    for name in DISTANCE:
-        max_err = 0.0
+    plain_g = {"distance_slot_gather": ref.distance_tasks_group_ref,
+               "distance_onehot": ref.distance_tasks_onehot_group_ref}
+    kern_g = {"distance_slot_gather": distance.distance_slot_gather_group,
+              "distance_onehot": distance.distance_onehot_group}
+    flop_per_elem = {"distance_slot_gather": 3, "distance_onehot": 6}  # l2
+    results = {name: {"max_abs_err": 0.0} for name in DISTANCE}
+
+    def run(name, kernels, plains, case_sets):
+        """One kernel on one case: held to the plain version at both metrics
+        (``check_distance``), timed, with the case's bound."""
         for metric in ("l2", "ip"):
-            for args in sets[:8]:
-                ids = args[2]
-                valid = ids >= 0
-                out = kern[name](*args, metric=metric)
-                want = plain[name](*args, metric=metric)
-                again = kern[name](*args, metric=metric)
-                torch.cuda.synchronize()
-                err = (out - want)[valid].abs()
-                check(bool((err <= 1e-3 + 1e-5 * want[valid].abs()).all()),
-                      f"{name} {metric}: max |kernel - plain| "
-                      f"{err.max().item()}")
-                check(bool((out[~valid] == dummy).all()),
-                      f"{name} {metric}: dummies are not exactly 1e30")
-                check(torch.equal(out, again),
-                      f"{name} {metric}: two runs differ")
-                max_err = max(max_err, err.max().item())
-                outs[name, metric, id(args)] = out
-            # padded T: appended dummies change nothing before them
-            args = sets[0]
-            pad_ids = torch.cat([args[2], args[2].new_full((256,), -1)])
-            pad_slot = torch.cat([slot, slot.new_zeros((256,))])
-            padded = kern[name](db_t, q_t, pad_ids, pad_slot, metric=metric)
-            torch.cuda.synchronize()
-            check(torch.equal(padded[:T], outs[name, metric, id(args)])
-                  and bool((padded[T:] == dummy).all()),
-                  f"{name} {metric}: padded T changes the results")
-        results[name] = {"max_abs_err": max_err}
+            results[name]["max_abs_err"] = max(
+                results[name]["max_abs_err"],
+                check_distance(name, kernels[name], plains[name], case_sets,
+                               metric))
+        ms, b2b = time_distance(kernels[name], case_sets)
+        bound, by, nbytes = distance_bound(case_sets, flop_per_elem[name])
+        p_ms, p_b2b = time_distance(plains[name], case_sets)
+        return dict(ms=ms, b2b_ms=b2b, plain_ms=p_ms, plain_b2b_ms=p_b2b,
+                    bound_ms=bound, bound_by=by, bytes=nbytes)
+
     for metric in ("l2", "ip"):  # B1 vs B2 (tests/test_kernels.py's bound)
         for args in sets[:8]:
-            a = outs["distance_slot_gather", metric, id(args)]
-            b = outs["distance_onehot", metric, id(args)]
+            a = kern["distance_slot_gather"](*args, metric=metric)
+            b = kern["distance_onehot"](*args, metric=metric)
             valid = args[2] >= 0
             check(torch.allclose(a[valid], b[valid], rtol=1e-4, atol=1e-4),
                   f"slot_gather vs onehot ({metric}) differ by "
                   f"{(a - b)[valid].abs().max().item()}")
-
-    # the bound: bytes the function must move for these inputs (the rows
-    # its valid tasks reference, once; the query rows they use; ids,
-    # slots and output) over HBM rate, vs its flops over fp32 peak
-    nbytes, nflops = [], []
-    for _, _, ids, _ in sets:
-        v = ids >= 0
-        rows = torch.unique(ids[v]).numel()
-        qrows = torch.unique(slot[v]).numel()
-        nbytes.append((rows + qrows) * D_IM * 4 + 3 * T * 4)
-        nflops.append(int(v.sum()) * D_IM)
-    nbytes, nflops = float(np.mean(nbytes)), float(np.mean(nflops))
-    flop_per_elem = {"distance_slot_gather": 3, "distance_onehot": 6}  # l2
+    fl_ms, fl_b2b = floor_ms()
+    # the serving pool's shape (launch/serve.py's VectorPoolConfig), G = 1
+    sp = SERVE_POOL
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sdb = torch.randn((sp["num_vectors"], sp["dim"]), generator=gen, device=dev)
+    sq = torch.randn((sp["max_requests"], sp["dim"]), generator=gen, device=dev)
+    serve_sets = [(sdb, sq, ids[0], sl[0]) for _, _, ids, sl in lane_sets(
+        sdb[None], sq[None], sp["task_batch"], 32, seed=6)]
+    # the lane sweep: lanes of 250,000 rows, 4 shards x up to 8 replicas
+    shards = db_t.view(SHARDS, N // SHARDS, D_IM)
+    dbs = shards.repeat(max(LANES) // SHARDS, 1, 1)  # (32, 250000, 128)
+    qs = torch.as_tensor(queries, device=dev).view(-1, R, D_IM)  # 16 sets of R
+    qs = qs.repeat(max(1, max(LANES) // qs.shape[0]), 1, 1)[:max(LANES)]
     for name in DISTANCE:
-        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ops = flop_per_elem[name] * nflops / FP32_FLOPS * 1e3
-        fn_k = lambda *a, f=kern[name]: f(*a, metric="l2")  # noqa: E731
-        fn_p = lambda *a, f=plain[name]: f(*a, metric="l2")  # noqa: E731
-        (k_ms, k_b2b), (p_ms, p_b2b) = (device_ms(fn_k, sets),
-                                        device_ms(fn_p, sets))
-        results[name].update(
-            ms=k_ms, b2b_ms=k_b2b, plain_ms=p_ms, plain_b2b_ms=p_b2b,
-            ms_again=device_ms(fn_k, sets)[0],
-            wall_ms=host_ms(fn_k, sets), plain_wall_ms=host_ms(fn_p, sets),
-            bound_ms=max(bound_bytes, bound_ops),
-            bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-            bytes=nbytes)
+        r = results[name]
+        r.update(run(name, kern, plain, sets))
+        r.update(ms_again=device_ms(lambda *a, f=kern[name]: f(*a, metric="l2"),
+                                    sets)[0],
+                 wall_ms=host_ms(lambda *a, f=kern[name]: f(*a, metric="l2"),
+                                 sets),
+                 plain_wall_ms=host_ms(
+                     lambda *a, f=plain[name]: f(*a, metric="l2"), sets),
+                 floor_ms=fl_ms, floor_b2b_ms=fl_b2b)
+        r["serve_pool"] = run(name, kern, plain, serve_sets)
+        r["lanes"] = []
+        for G in LANES:
+            case = lane_sets(dbs[:G], qs[:G], T, max(8, 128 // G), seed=10 + G)
+            lane = run(name, kern_g, plain_g, case)
+            r["lanes"].append(dict(G=G, **lane))
+            del case
+    del dbs
+    torch.cuda.empty_cache()
     return results
 
 
@@ -692,16 +814,30 @@ def main():
     db_t = torch.as_tensor(db, device="cuda")
     kres = phase_kernels(db_t, queries)
     del db_t
+    floor = kres["distance_slot_gather"]
+
+    def case_line(c):
+        return (f"ms={c['ms']:.5f} b2b={c['b2b_ms']:.5f} plain_ms="
+                f"{c['plain_ms']:.5f} bound_ms={c['bound_ms']:.6f} "
+                f"({c['bound_by']}, {c['bytes']:.0f} B)")
+
     print("phase 2 kernels: " + "; ".join(
-        f"{n} max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.5f} "
-        f"(again {r['ms_again']:.5f}, back to back {r['b2b_ms']:.5f}) "
+        f"{n} max_abs_err={r['max_abs_err']:.3g} "
+        f"ms={r['ms']:.5f} (again {r['ms_again']:.5f}, back to back "
+        f"{r['b2b_ms']:.5f}) "
         f"plain_ms={r['plain_ms']:.5f} (back to back "
         f"{r['plain_b2b_ms']:.5f}) "
         f"wall_ms={r['wall_ms']:.5f} plain_wall_ms={r['plain_wall_ms']:.5f} "
         f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}, "
-        f"{r['bytes']:.0f} B)" for n, r in kres.items())
-        + " | library_ms none: no single PyTorch call gathers rows by id "
-        "and reduces each against its own slot's query", flush=True)
+        f"{r['bytes']:.0f} B) | serving pool (G=1, T=512, d=64): "
+        f"{case_line(r['serve_pool'])} | lanes: " + ", ".join(
+            f"G={c['G']} {case_line(c)}" for c in r["lanes"])
+        for n, r in kres.items())
+        + f" | launch floor (one-element add): ms={floor['floor_ms']:.5f} "
+        f"b2b={floor['floor_b2b_ms']:.5f} | library_ms none: no single PyTorch "
+        "call gathers rows by id and reduces each against its own slot's "
+        f"query | lane g of every G-lane launch equal to its own launch | "
+        f"{smi}", flush=True)
 
     # ---- phase 3: the pool at full size ------------------------------------
     cfg = VectorPoolConfig(num_vectors=N, dim=D_IM)
@@ -742,7 +878,8 @@ def main():
           f"{NUM_QUERIES / wall_s:.1f} completed requests per wall-second "
           f"({wall_s:.2f} s), peak allocated {peak_mb:.0f} MiB, occupancy "
           f"{m.occupancy:.4f}, preemptions {m.preemptions}, launches "
-          f"{main_launches} | CPU run: recall@10={recall_cpu:.4f}, "
+          f"{main_launches} | CPU run: "
+          f"recall@10={recall_cpu:.4f}, "
           f"top-10 lists equal {same:.4f}, extends equal "
           f"{float((ext_gpu == ext_cpu).mean()):.4f}, {wall_cpu:.1f} s",
           flush=True)
@@ -762,7 +899,8 @@ def main():
     print(f"phase 4 matmul_onehot: {n4} requests, recall@10={recall4:.4f} "
           f"(slot_gather on the same queries {recall3:.4f}), top-10 lists "
           f"equal {float((ids4 == ids_gpu[:n4]).all(axis=1).mean()):.4f}, "
-          f"{wall4:.2f} s, launches {onehot_launches}", flush=True)
+          f"{wall4:.2f} s, launches {onehot_launches}",
+          flush=True)
 
     # ---- phase 5: the paths went through the kernels -----------------------
     launches = {"distance_slot_gather":
@@ -773,9 +911,9 @@ def main():
     check(main_launches["distance_onehot"] == 0
           and onehot_launches["distance_slot_gather"] == 0,
           "a path launched the other mode's kernel")
-    print(f"phase 5 kernels: launches {launches} (extend steps "
-          f"{m.extend_steps} slot_gather, {pool4.metrics.extend_steps} "
-          f"onehot)", flush=True)
+    print(f"phase 5 kernels: launches {launches} "
+          f"(extend steps {m.extend_steps} slot_gather, "
+          f"{pool4.metrics.extend_steps} onehot)", flush=True)
 
     print(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -874,6 +1012,14 @@ def main():
             "library_ms": r.get("library_ms")}
         if "warm_ms" in r:
             entry["warm_ms"] = r["warm_ms"]
+        if name in DISTANCE:
+            keys = ("ms", "b2b_ms", "plain_ms", "bound_ms")
+            entry.update(
+                b2b_ms=r["b2b_ms"], floor_ms=r["floor_ms"],
+                floor_b2b_ms=r["floor_b2b_ms"],
+                serve_pool={k: r["serve_pool"][k] for k in keys},
+                lanes=[{"G": c["G"], **{k: c[k] for k in keys}}
+                       for c in r["lanes"]])
         if name in ("flash_mma", "flash_fp32"):
             entry["cases"] = [
                 {key: c[key] for key in ("shape", "dtype", "max_abs_err", "ms",

@@ -47,6 +47,34 @@ def distance_tasks(db, queries, task_ids, task_slot, metric: str = "l2",
     return plain(db, queries, task_ids, task_slot, metric=metric)
 
 
+def distance_tasks_group(dbs, queries, task_ids, task_slot,
+                         metric: str = "l2", task_block: int = 256,
+                         mode: str = "slot_gather"):
+    """The distance stage over G lanes in one call: (G, T) float32.
+
+    dbs (G, N, d) · queries (G, R, d) · task_ids/task_slot (G, T) int32,
+    T % task_block == 0. Lane g equals ``distance_tasks`` on lane g's
+    arrays: the written-out counterpart of the ``jax.vmap`` over shard
+    replicas in the JAX package's ``extend_multi_group``. CUDA tensors take
+    one launch of the lane kernel; CPU tensors the batched plain version."""
+    T = task_ids.shape[-1]
+    if task_block <= 0 or T % task_block:
+        raise ValueError(f"T={T} must be a multiple of task_block="
+                         f"{task_block}")
+    if mode not in MODES:
+        raise ValueError(f"unknown distance mode: {mode!r}")
+    if dbs.dim() != 3:
+        raise ValueError(f"dbs must be (G, N, d), got {tuple(dbs.shape)}")
+    if _on_card(dbs):
+        kernel = (_dist.distance_slot_gather_group if mode == "slot_gather"
+                  else _dist.distance_onehot_group)
+        return kernel(dbs, queries, task_ids, task_slot, metric=metric)
+    _dist.check_inputs(dbs, queries, task_ids, task_slot, metric)
+    plain = (_ref.distance_tasks_group_ref if mode == "slot_gather"
+             else _ref.distance_tasks_onehot_group_ref)
+    return plain(dbs, queries, task_ids, task_slot, metric=metric)
+
+
 def flash_attention(q, k, v, causal: bool = True, block_q: int = 256,
                     block_k: int = 256):
     """q (B,Sq,H,hd), k/v (B,Sk,Hkv,hd) -> (B,Sq,H,hd). ``block_q`` and

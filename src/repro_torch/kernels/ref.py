@@ -71,6 +71,55 @@ def distance_tasks_onehot_ref(db, queries, task_ids, task_slot,
     return torch.where(task_ids >= 0, dist, DUMMY_DIST)
 
 
+def _lane_rows(dbs, task_ids):
+    """(G, T, d): each lane's rows by a batched gather, ids clamped into
+    [0, N) as in ``_rows``."""
+    lane = torch.arange(dbs.shape[0], device=dbs.device)[:, None]
+    return dbs[lane, task_ids.long().clamp(0, dbs.shape[1] - 1)].float()
+
+
+def distance_tasks_group_ref(dbs, queries, task_ids, task_slot,
+                             metric: str = "l2"):
+    """Plain version of the slot-gather stage over G lanes: dbs (G, N, d),
+    queries (G, R, d), task_ids/task_slot (G, T) -> (G, T); lane g is
+    ``distance_tasks_ref`` on lane g's arrays (``jax.vmap`` of the JAX
+    reference)."""
+    x = _lane_rows(dbs, task_ids)  # (G, T, d)
+    lane = torch.arange(dbs.shape[0], device=dbs.device)[:, None]
+    q = queries[lane, task_slot.long()].float()  # (G, T, d)
+    if metric == "l2":
+        dist = ((x - q) ** 2).sum(-1)
+    elif metric == "ip":
+        dist = -(x * q).sum(-1)
+    else:
+        raise ValueError(metric)
+    return torch.where(task_ids >= 0, dist, DUMMY_DIST)
+
+
+def distance_tasks_onehot_group_ref(dbs, queries, task_ids, task_slot,
+                                    metric: str = "l2"):
+    """Plain version of the one-hot stage over G lanes (shapes as
+    ``distance_tasks_group_ref``): each lane's (T, R) Gram, then a one-hot
+    select of the owning column."""
+    x = _lane_rows(dbs, task_ids)  # (G, T, d)
+    q = queries.float()  # (G, R, d)
+    xq = x @ q.transpose(1, 2)  # (G, T, R)
+    R = q.shape[1]
+    onehot = (task_slot.long()[..., None]
+              == torch.arange(R, device=q.device)[None, None])
+    sel_xq = torch.where(onehot, xq, 0.0).sum(-1)
+    if metric == "l2":
+        xnorm = (x * x).sum(-1)
+        qnorm = (q * q).sum(-1)  # (G, R)
+        sel_qn = torch.where(onehot, qnorm[:, None, :], 0.0).sum(-1)
+        dist = xnorm - 2.0 * sel_xq + sel_qn
+    elif metric == "ip":
+        dist = -sel_xq
+    else:
+        raise ValueError(metric)
+    return torch.where(task_ids >= 0, dist, DUMMY_DIST)
+
+
 def mha_ref(q, k, v, causal: bool = True):
     """q: (B,Sq,H,hd), k/v: (B,Sk,Hkv,hd) -> (B,Sq,H,hd). GQA broadcast:
     query head h reads kv head h // (H/Hkv); causal mask qpos >= kpos over

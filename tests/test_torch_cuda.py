@@ -72,6 +72,150 @@ def test_kernel_padding_invariant_and_deterministic(cuda, mode):
     assert bool((padded[256:] == 1e30).all())
 
 
+# ---- the lane form: G engines' tasks in one launch ----
+
+def _lane_inputs(G, N, d, R, T, seed, dev):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, N, size=(G, T)).astype(np.int32)
+    for g in range(G):
+        ids[g, g::5 + g] = -1  # each lane's dummies elsewhere
+    arrays = (rng.normal(size=(G, N, d)).astype(np.float32),
+              rng.normal(size=(G, R, d)).astype(np.float32), ids,
+              rng.integers(0, R, size=(G, T)).astype(np.int32))
+    return [torch.as_tensor(a, device=dev) for a in arrays]
+
+
+_NAME = {"slot_gather": "distance_slot_gather",
+         "matmul_onehot": "distance_onehot"}
+
+
+def _plain_group(mode):
+    from repro_torch.kernels import ref
+
+    return (ref.distance_tasks_group_ref if mode == "slot_gather"
+            else ref.distance_tasks_onehot_group_ref)
+
+
+def _kernel(mode, group):
+    from repro_torch.kernels import distance
+
+    name = _NAME[mode] + ("_group" if group else "")
+    return getattr(distance, name)
+
+
+@pytest.mark.parametrize("mode", ["slot_gather", "matmul_onehot"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("entry", ["ops", "kernel"])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("N,d,R,T", SWEEP)
+def test_group_kernel_matches_plain(cuda, mode, metric, entry, G, N, d, R, T):
+    """The lane kernel, through ``ops.distance_tasks_group`` and through its
+    wrapper, against the plain version; one launch a call."""
+    from repro_torch.kernels import distance, ops
+
+    args = _lane_inputs(G, N, d, R, T, seed=N + d + G, dev=cuda)
+    before = distance.launches[_NAME[mode]]
+    out = (ops.distance_tasks_group(*args, metric=metric, mode=mode)
+           if entry == "ops" else _kernel(mode, True)(*args, metric=metric))
+    plain = _plain_group(mode)(*args, metric=metric)
+    torch.cuda.synchronize()
+    assert distance.launches[_NAME[mode]] == before + 1
+    valid = args[2] >= 0
+    assert out.shape == (G, T)
+    torch.testing.assert_close(out[valid], plain[valid], rtol=1e-5, atol=1e-3)
+    assert bool((out[~valid] == 1e30).all())
+
+
+@pytest.mark.parametrize("mode", ["slot_gather", "matmul_onehot"])
+@pytest.mark.parametrize("d", [64, 127])
+def test_group_padding_invariant_and_deterministic(cuda, mode, d):
+    """Dummies appended to every lane change nothing before them; two runs
+    give the same bits (float4 rows and the scalar path)."""
+    db, q, ids, slot = _lane_inputs(4, 300, d, 8, 256, seed=5, dev=cuda)
+    fn = _kernel(mode, True)
+    base = fn(db, q, ids, slot)
+    again = fn(db, q, ids, slot)
+    pids = torch.cat([ids, ids.new_full((4, 256), -1)], dim=1)
+    pslot = torch.cat([slot, slot.new_zeros((4, 256))], dim=1)
+    padded = fn(db, q, pids, pslot)
+    torch.cuda.synchronize()
+    assert torch.equal(base, again)
+    assert torch.equal(base, padded[:, :256])
+    assert bool((padded[:, 256:] == 1e30).all())
+
+
+@pytest.mark.parametrize("mode", ["slot_gather", "matmul_onehot"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("G,N,d,R,T", [(4, 500, 128, 8, 2048),
+                                       (7, 300, 64, 4, 100),   # lanes split blocks
+                                       (3, 300, 127, 8, 256),  # scalar path
+                                       (2, 200, 2052, 4, 64)])  # wide rows
+def test_group_lane_equals_single_launch(cuda, mode, metric, G, N, d, R, T):
+    """Lane g of one G-lane launch has the bits of a G = 1 launch on lane g
+    and of the (T,) wrapper on lane g (one lane mapping, one order of
+    sums)."""
+    args = _lane_inputs(G, N, d, R, T, seed=G + d, dev=cuda)
+    group = _kernel(mode, True)(*args, metric=metric)
+    for g in range(G):
+        lane = [a[g:g + 1] for a in args]
+        one = _kernel(mode, True)(*lane, metric=metric)
+        single = _kernel(mode, False)(*[a[0] for a in lane], metric=metric)
+        torch.cuda.synchronize()
+        assert torch.equal(group[g], one[0]), g
+        assert torch.equal(group[g], single), g
+    plain = _plain_group(mode)(*args, metric=metric)
+    valid = args[2] >= 0
+    torch.testing.assert_close(group[valid], plain[valid], rtol=1e-5,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["slot_gather", "matmul_onehot"])
+@pytest.mark.parametrize("case", ["db_unaligned", "ids_unaligned", "wide",
+                                  "out_of_range"])
+def test_group_kernel_edge_cases(cuda, mode, case):
+    """The lane kernel against the plain version on a db base off 16 bytes
+    (the scalar path), ids and slots off 16 bytes, rows of 8 KB (d 2048),
+    and ids past N and slots past R (clamped within each lane)."""
+    G, N, d, R, T = 3, 300, 2048 if case == "wide" else 64, 8, 256
+    db, q, ids, slot = _lane_inputs(G, N, d, R, T, seed=len(case), dev=cuda)
+    if case == "db_unaligned":
+        db = torch.cat([db.new_zeros(1), db.flatten()])[1:].view(G, N, d)
+    if case == "ids_unaligned":
+        ids = torch.cat([ids.new_zeros(1), ids.flatten()])[1:].view(G, T)
+        slot = torch.cat([slot.new_zeros(1), slot.flatten()])[1:].view(G, T)
+    want_args = [db, q, ids, slot]
+    if case == "out_of_range":
+        ids[:, 3::11] = N + torch.arange(G, device=cuda, dtype=torch.int32)[:, None]
+        slot[:, 5::13] = R + 2
+        want_args = [db, q, ids, slot.clamp(0, R - 1)]
+    out = _kernel(mode, True)(db, q, ids, slot)
+    plain = _plain_group(mode)(*want_args)
+    torch.cuda.synchronize()
+    valid = ids >= 0
+    torch.testing.assert_close(out[valid], plain[valid], rtol=1e-5, atol=1e-3)
+    assert bool((out[~valid] == 1e30).all())
+
+
+def test_group_wrappers_refuse_cpu_and_bad_shapes(cuda):
+    from repro_torch.kernels import distance
+
+    db, q, ids, slot = _lane_inputs(2, 100, 32, 4, 256, seed=1, dev=cuda)
+    before = dict(distance.launches)
+    for fn in (distance.distance_slot_gather_group,
+               distance.distance_onehot_group):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(db.cpu(), q.cpu(), ids.cpu(), slot.cpu())
+        for args in ((db, q[:1], ids, slot), (db, q, ids[:, :128], slot),
+                     (db[0], q[0], ids[0], slot[0]), (db, q, ids.long(), slot),
+                     (db, q[..., :16], ids, slot), (db, q, ids, slot.cpu())):
+            with pytest.raises(ValueError):
+                fn(*args)
+    for fn in (distance.distance_slot_gather, distance.distance_onehot):
+        with pytest.raises(ValueError):
+            fn(db, q, ids, slot)
+    assert distance.launches == before
+
+
 def test_engine_on_card_matches_cpu(cuda):
     """A few engine chunks on the card give the CPU run's ids."""
     from repro_torch.configs.base import VectorPoolConfig

@@ -6,11 +6,13 @@ engine and stream of ``chip_smoke.py`` phase 3).
     python3 tools/profile_torch_pool.py     # one NVIDIA GPU
 
 Prints the window's wall time, the device busy share (union of kernel and
-copy intervals over the window), kernels launched per extend step, and the
-kernels that take the most device time. The trace itself is written under
+copy intervals over the window), kernels launched per extend step, the
+kernels that take the most device time, and the distance kernels' launches
+and mean device time per launch. The trace itself is written under
 ``build/profile/`` (not kept in the repository).
 """
 import json
+import re
 import sys
 import time
 from collections import Counter
@@ -78,12 +80,17 @@ def main():
     for e in kernels:
         by_name[e["name"][:60]] += e["dur"]
     top = "; ".join(f"{n} {us:.0f} us" for n, us in by_name.most_common(6))
+    dist = [e["dur"] for e in kernels if "distance_" in e["name"]]
+    dist_names = sorted({re.search(r"distance_\w+", e["name"]).group()
+                         for e in kernels if "distance_" in e["name"]})
     print(f"profile: window {wall_us / 1e3:.1f} ms wall, {steps} extend "
           f"steps ({wall_us / max(steps, 1):.0f} us wall per step), device "
           f"busy {busy / 1e3:.2f} ms = {busy / wall_us:.4f} of the window, "
           f"{len(kernels)} kernels ({len(kernels) / max(steps, 1):.1f} per "
           f"step), {len(dev) - len(kernels)} copies/memsets | top device "
-          f"time: {top}", flush=True)
+          f"time: {top} | distance kernels {dist_names}: {len(dist)} "
+          f"launches, {sum(dist) / max(len(dist), 1):.3f} us each on the "
+          "card", flush=True)
     print(torch.cuda.get_device_name(0))
 
 
