@@ -20,10 +20,11 @@ line is printed only when every phase passed):
     128 task sets, so gathered rows are not served from the 50 MB L2, and
     back to back: one event pair around the 240, over the count), the plain
     version's time and the bound; the same at the serving pool's shape
-    (N=2000, d=64, R=16, T=512); then the lane sweep, G in {1, 4, 16, 32}
-    lanes in one launch (each lane 250,000 rows of the corpus, its own
-    ids), with lane g of each launch held bit-equal to a G=1 launch on
-    lane g; and the launch floor, a one-element add timed both ways
+    (N=2000, d=64, R=16, T=512); then the lane sweep, G in {1, 4, 8, 16,
+    32} lanes in one launch (8: phase 10's; each lane 250,000 rows of the
+    corpus, its own ids), with lane g of each launch held bit-equal to a
+    G=1 launch on lane g; and the launch floor, a one-element add timed
+    both ways
   3 the pool at full size: the quickstart's stream over 1024 queries,
     drained; recall@10 against exact kNN on the card; the same stream
     through the port on the CPU over the same index for comparison
@@ -62,6 +63,18 @@ line is printed only when every phase passed):
     bf16, random weights from seed 0), the same pool and traffic as
     phase 7; every logit finite, all 28 prefill launches on
     flash_wgmma256, B4 launched 28 x (512 + 32) times
+ 10 the sharded, megabatched pool at full size (sharded-sift1m-shape): the
+    same corpus in 4 balanced-k-means shards (exact graphs built on the
+    card) x 2 replicas = 8 lanes of one GroupEngine, the answer cache on;
+    the quickstart stream with 256 inserts of fresh vectors interleaved,
+    then 256 cache lookups (half repeat an insert); every request completed
+    once, recall@10 >= 0.3, inserts broadcast to their owning shard's two
+    replicas only, at least half the repeats hit, every grouped extend's
+    distance stage one 8-lane launch of B1; the first 256 probes, 64
+    inserts and 64 repeat lookups again on the card and on the CPU over
+    clones of the shards (>= 99% equal lists, recall within 0.005, equal
+    hits); the first 128 probes with matmul_onehot (B2's lane form, recall
+    within 0.01)
 
 The pool's clock is simulated and priced by the JAX package's V5E model;
 no latency from that clock is printed. Every time printed here is a host
@@ -302,7 +315,7 @@ def time_distance(fn, sets):
                      hold_cycles=500_000_000)
 
 
-LANES = (1, 4, 16, 32)  # phase 2's lane sweep
+LANES = (1, 4, 8, 16, 32)  # phase 2's lane sweep (8: phase 10's launch)
 SHARDS = 4  # phase 3's corpus cut into 4 shards of 250,000 rows
 
 
@@ -311,9 +324,10 @@ def phase_kernels(db_t, queries):
     shape (T=2048 tasks, R=64 slots, d=128, N=10^6; ~25% dummies, 128 task
     sets so gathered rows are not served from the 50 MB L2) and at the
     serving pool's (N=2000, d=64, R=16, T=512); then the lane sweep, G in
-    {1, 4, 16, 32} lanes in one launch at T=2048, R=64, d=128, the lanes
+    {1, 4, 8, 16, 32} lanes in one launch at T=2048, R=64, d=128, the lanes
     the 4 shards of the corpus (250,000 rows each) repeated up to 8 times
-    (4 shards x 8 replicas; G=32 holds 4.1 GB), each lane its own ids."""
+    (4 shards x 8 replicas; G=32 holds 4.1 GB), each lane its own ids; G = 8
+    is phase 10's launch (4 shards x 2 replicas)."""
     import numpy as np
     import torch
 
@@ -725,6 +739,248 @@ def phase_serve(arch, variant):
                 tok_per_s=B * NEW / stats["decode_s"])
 
 
+SHARDED = dict(num_shards=SHARDS, replicas_per_shard=2,
+               semantic_cache_enabled=True)  # phase 10's pool
+N_INSERT, N_LOOKUP = 256, 256  # phase 10's inserts and cache lookups
+
+
+def sharded_stream(stream, queries, inserts, fresh, n_insert, n_lookup):
+    """Phase 10's traffic: the quickstart stream, with insert i of
+    ``n_insert`` at the arrival of request 4i; then, once drained,
+    ``n_lookup`` cache lookups: lookup j repeats insert j // 2 when j is
+    even and is fresh vector j // 2 when odd. Returns (events [(t, what,
+    payload)] in submission order, lookups [(rid, vector)])."""
+    events = []
+    for rid, kind, t, ddl in stream:
+        events.append((t, "probe", (rid, kind, queries[rid], ddl)))
+        if rid % 4 == 0 and rid // 4 < n_insert:
+            events.append((t, "insert", rid // 4))
+    lookups = [(1_000_000 + j, inserts[j // 2] if j % 2 == 0
+                else fresh[j // 2]) for j in range(n_lookup)]
+    return events, lookups
+
+
+def drive_sharded(cfg, shards, db, inserts, events, lookups, device):
+    """Submit phase 10's traffic to a ShardedVectorPool over ``shards`` on
+    ``device``, drain the probes and inserts, then the lookups. Returns
+    (pool, wall seconds, chunks launched, insert wall seconds)."""
+    import torch
+
+    from repro_torch.core import ShardedVectorPool, VectorRequest
+
+    pool = ShardedVectorPool(cfg, db, device=device, seed=0,
+                             shard_index=shards)
+    chunks, insert_s = [], []
+    step, insert_local = pool._group.step_lanes_async, shards.insert_local
+
+    def counted_step(lanes, k):
+        chunks.append(k)
+        return step(lanes, k)
+
+    def timed_insert(*a, **kw):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = insert_local(*a, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        insert_s.append(time.perf_counter() - t0)
+        return out
+
+    pool._group.step_lanes_async = counted_step
+    shards.insert_local = timed_insert
+    t0 = time.perf_counter()
+    for t, what, x in events:
+        if what == "probe":
+            rid, kind, q, ddl = x
+            pool.submit(VectorRequest(rid, kind, q, t, ddl))
+        else:
+            pool.submit_insert(inserts[x], meta={"insert": x}, t_now=t)
+    t_end = events[-1][0] + 1.0
+    pool.run_until(t_end)
+    ddl = cfg.prefill_deadline_ms / 1e3  # the cache_lookup class's
+    for j, (rid, q) in enumerate(lookups):
+        t = t_end + j * 1e-4
+        pool.submit(VectorRequest(rid, "cache_lookup", q, t, t + ddl))
+    pool.run_until(t_end + 1.0)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    del shards.insert_local  # the clone's method again
+    return pool, time.perf_counter() - t0, chunks, insert_s
+
+
+def sharded_results(pool, n_probe, n_insert, lookups):
+    """Phase 10's checks on one run: every probe, insert and lookup
+    completed exactly once. Returns (probe ids (n, 10), hits: one bool a
+    lookup — its nearest entry within ``cache_hit_threshold`` and its
+    answer served by ``meta_at``)."""
+    import numpy as np
+
+    done = pool.metrics.completed
+    rids = [r.rid for r in done]
+    check(len(rids) == len(set(rids)), "a request completed twice")
+    probes = {r.rid: r for r in done if r.kind in ("prefill", "decode")}
+    check(sorted(probes) == list(range(n_probe)),
+          f"{len(probes)} probe completions for {n_probe} probes")
+    check(pool.metrics.inserts == n_insert,
+          f"{pool.metrics.inserts} inserts placed for {n_insert}")
+    n_queued = sum(r.kind == "insert" for r in done)
+    check(n_queued <= n_insert and n_queued >= n_insert - SHARDS,
+          f"{n_queued} searched inserts completed (at most one insert a "
+          "shard is placed without a search)")
+    look = {r.rid: r for r in done if r.kind == "cache_lookup"}
+    check(sorted(look) == sorted(rid for rid, _ in lookups),
+          f"{len(look)} lookup completions for {len(lookups)} lookups")
+    thr = pool.cfg.cache_hit_threshold
+    hits = np.asarray([
+        look[rid].result_ids is not None
+        and look[rid].result_dists[0] <= thr
+        and pool.meta_at(int(look[rid].result_ids[0]),
+                         look[rid].t_completed) is not None
+        for rid, _ in lookups], bool)
+    ids = np.stack([probes[i].result_ids for i in range(n_probe)])
+    check(ids.shape == (n_probe, 10) and (ids >= 0).all() and (ids < N).all(),
+          "sharded results are not 10 valid global ids per probe")
+    return ids, hits
+
+
+def phase_sharded(db, queries, stream, true_ids):
+    """Phase 10: the sharded, megabatched pool at full size
+    (sharded-sift1m-shape): the 10^6 x 128 corpus in 4 shards x 2 replicas
+    (8 lanes of one GroupEngine), the answer cache on, exact shard graphs
+    built on the card; the quickstart stream with 256 inserts, then 256
+    cache lookups; every grouped chunk's distance stage one lane launch.
+    The first 256 probes with the first 64 inserts and their 64 repeat
+    lookups run again on the card and on the CPU over clones of the same
+    shards (equal lists and hits), and the first 128 probes with their 32
+    inserts on the card with distance_mode="matmul_onehot" (B2's lane
+    form; recall within 0.01 of the slot-gather run's)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import VectorPoolConfig
+    from repro_torch.kernels import distance
+    from repro_torch.vector.dataset import make_dataset
+    from repro_torch.vector.ref import recall_at_k
+    from repro_torch.vector.shards import ShardedIndex
+
+    t_phase = time.perf_counter()
+    cfg = VectorPoolConfig(num_vectors=N, dim=D_IM, **SHARDED)
+    t0 = time.perf_counter()
+    shards = ShardedIndex(
+        db, num_shards=SHARDS, degree=cfg.graph_degree, metric=cfg.metric,
+        cache_capacity=cfg.cache_capacity,
+        kmeans_iters=cfg.shard_kmeans_iters, seed=0,
+        route_centroids=cfg.shard_route_centroids,
+        exact_threshold=-(-N // SHARDS), device="cuda")
+    build_s = time.perf_counter() - t0
+    sizes = [len(r) for r in shards.shard_rows]
+    reduced_card, onehot_card = shards.clone(), shards.clone()
+    reduced_cpu = shards.clone("cpu")
+    inserts, fresh = make_dataset(N_INSERT, D_IM, seed=7,
+                                  num_queries=N_LOOKUP // 2)
+    events, lookups = sharded_stream(stream, queries, inserts, fresh,
+                                     N_INSERT, N_LOOKUP)
+    torch.cuda.reset_peak_memory_stats()
+    distance.reset_launches()
+    pool, wall, chunks, insert_s = drive_sharded(
+        cfg, shards, db, inserts, events, lookups, "cuda")
+    launches = dict(distance.launches)
+    lanes = {k: dict(v) for k, v in distance.lane_launches.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    m = pool.metrics
+    ids, hits = sharded_results(pool, len(stream), N_INSERT, lookups)
+    hit_rep, hit_fresh = int(hits[0::2].sum()), int(hits[1::2].sum())
+    recall = recall_at_k(ids, true_ids)
+    check(recall >= 0.3, f"sharded recall@10 {recall:.4f} under 0.3")
+    check(m.broadcasts == 2 * m.inserts,
+          f"{m.broadcasts} broadcasts for {m.inserts} inserts (want 2 each:"
+          " the owning shard's two replicas only)")
+    check(2 * hit_rep >= N_INSERT // 2,
+          f"{hit_rep} of {N_INSERT // 2} repeated lookups hit")
+    G = pool._group.g_cap
+    check(G == 8 and lanes["distance_slot_gather"] == {G: sum(chunks)}
+          and launches["distance_slot_gather"] == sum(chunks)
+          and launches["distance_onehot"] == 0,
+          f"distance launches {launches} by G {lanes} for {len(chunks)} "
+          f"grouped chunks of {sum(chunks)} extends: not one {G}-lane launch"
+          " a grouped extend")
+    bcast_b = pool.broadcast_bytes / max(m.broadcasts, 1)
+    lane_copy_b = pool._group.n_max * (cfg.dim + cfg.graph_degree) * 4
+    out = dict(
+        wall_s=wall, build_s=build_s, sizes=sizes, recall=recall,
+        hit_rep=hit_rep, hit_fresh=hit_fresh, launches=launches,
+        lanes=lanes, chunks=len(chunks), extends=sum(chunks), G=G,
+        completed=len(m.completed), inserts=m.inserts,
+        broadcasts=m.broadcasts, merges=m.merges, evictions=m.cache_evictions,
+        sub_searches=m.sub_searches, bcast_bytes=bcast_b,
+        lane_copy_bytes=lane_copy_b, peak_gib=peak_gib,
+        insert_ms=np.percentile(np.asarray(insert_s) * 1e3, [50, 95]),
+        n_max=pool._group.n_max, occupancy=m.occupancy)
+    del pool, shards
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first 256 probes + first 64 inserts + their 64 repeat lookups,
+    # on the card and on the CPU over clones of the same shards
+    n_red = 256
+    red_events = [e for e in events
+                  if (e[1] == "probe" and e[2][0] < n_red)
+                  or (e[1] == "insert" and e[2] < n_red // 4)]
+    red_lookups = lookups[:2 * (n_red // 4):2]  # the repeats
+    runs = {}
+    for dev, sh in (("cuda", reduced_card), ("cpu", reduced_cpu)):
+        p, w, _, _ = drive_sharded(cfg, sh, db, inserts, red_events,
+                                   red_lookups, dev)
+        r_ids, r_hits = sharded_results(p, n_red, n_red // 4, red_lookups)
+        runs[dev] = dict(ids=r_ids, hits=int(r_hits.sum()), wall=w,
+                         recall=recall_at_k(r_ids, true_ids[:n_red]))
+        del p, sh
+        gc.collect()
+    torch.cuda.empty_cache()
+    same = float((runs["cuda"]["ids"] == runs["cpu"]["ids"]).all(1).mean())
+    check(same >= 0.99, f"only {same:.4f} of the sharded top-10 lists equal "
+          "the CPU run")
+    check(abs(runs["cuda"]["recall"] - runs["cpu"]["recall"]) <= 0.005,
+          f"sharded recall {runs['cuda']['recall']:.4f} (card) vs "
+          f"{runs['cpu']['recall']:.4f} (CPU)")
+    check(runs["cuda"]["hits"] == runs["cpu"]["hits"],
+          f"repeat hits {runs['cuda']['hits']} (card) vs "
+          f"{runs['cpu']['hits']} (CPU)")
+    out.update(red_same=same, red=runs,
+               red_vs_full=float((runs["cuda"]["ids"] == ids[:n_red])
+                                 .all(1).mean()))
+
+    # B2's lane form on the same path: the first 128 probes + 32 inserts
+    n_oh = 128
+    cfg_oh = dataclasses.replace(cfg, distance_mode="matmul_onehot")
+    oh_events = [e for e in red_events
+                 if (e[1] == "probe" and e[2][0] < n_oh)
+                 or (e[1] == "insert" and e[2] < n_oh // 4)]
+    distance.reset_launches()
+    p, w, oh_chunks, _ = drive_sharded(cfg_oh, onehot_card, db, inserts,
+                                       oh_events, [], "cuda")
+    oh_launches = dict(distance.launches)
+    oh_lanes = {k: dict(v) for k, v in distance.lane_launches.items()}
+    oh_ids, _ = sharded_results(p, n_oh, n_oh // 4, [])
+    del p, onehot_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(oh_lanes["distance_onehot"] == {G: sum(oh_chunks)}
+          and oh_launches["distance_slot_gather"] == 0,
+          f"matmul_onehot launches {oh_launches} by G {oh_lanes}")
+    oh_recall = recall_at_k(oh_ids, true_ids[:n_oh])
+    sg_recall = recall_at_k(runs["cuda"]["ids"][:n_oh], true_ids[:n_oh])
+    check(abs(oh_recall - sg_recall) <= 0.01,
+          f"matmul_onehot sharded recall {oh_recall:.4f} vs {sg_recall:.4f}")
+    out.update(oh_recall=oh_recall, sg_recall=sg_recall, oh_wall=w,
+               oh_launches=oh_launches, oh_lanes=oh_lanes,
+               oh_same=float((oh_ids == runs["cuda"]["ids"][:n_oh])
+                             .all(1).mean()),
+               phase_s=time.perf_counter() - t_phase)
+    return out
+
+
 def phase_card_vs_cpu():
     """Phase 8: one set of weights at phi3's widths (2 layers, float32)
     through RealServer on the card and on the CPU."""
@@ -972,6 +1228,40 @@ def main():
     gem = phase_serve("gemma-7b", "flash_wgmma256")
     print(serve_line(9, gem, t0), flush=True)
 
+    # ---- phase 10: the sharded, megabatched pool at full size --------------
+    sh = phase_sharded(db, queries, stream, true_ids)
+    red = sh["red"]
+    print(f"phase 10 sharded pool: {N} x {D_IM} in {SHARDS} shards "
+          f"{sh['sizes']} x 2 replicas = {sh['G']} lanes (stacked rows "
+          f"{sh['n_max']}), shards and exact graphs built on the card in "
+          f"{sh['build_s']:.1f} s | {NUM_QUERIES} probes + {N_INSERT} inserts "
+          f"+ {N_LOOKUP} lookups: {sh['completed']} completions each once, "
+          f"recall@10={sh['recall']:.4f}, repeated lookups hit "
+          f"{sh['hit_rep']}/{N_INSERT // 2}, fresh lookups hit "
+          f"{sh['hit_fresh']}/{N_LOOKUP // 2}, inserts {sh['inserts']} "
+          f"broadcasts {sh['broadcasts']} (2 an insert: the owning shard's "
+          f"replicas), {sh['bcast_bytes']:.0f} B copied a broadcast (a whole "
+          f"lane: {sh['lane_copy_bytes']:.0f} B), insert wall p50/p95 "
+          f"{sh['insert_ms'][0]:.3f}/{sh['insert_ms'][1]:.3f} ms, "
+          f"evictions {sh['evictions']}, merges {sh['merges']}, children "
+          f"{sh['sub_searches']}, occupancy {sh['occupancy']:.4f} | "
+          f"{sh['chunks']} grouped chunks of {sh['extends']} extends, "
+          f"distance launches {sh['launches']} by G {sh['lanes']}: one "
+          f"{sh['G']}-lane launch a grouped extend, none single-lane | "
+          f"{sh['wall_s']:.2f} s ({NUM_QUERIES / sh['wall_s']:.1f} probes per "
+          f"wall-second), peak allocated {sh['peak_gib']:.2f} GiB | first "
+          f"256 probes + 64 inserts + 64 repeat lookups, card vs CPU: top-10 "
+          f"lists equal {sh['red_same']:.4f}, recall@10 "
+          f"{red['cuda']['recall']:.4f} vs {red['cpu']['recall']:.4f}, hits "
+          f"{red['cuda']['hits']} vs {red['cpu']['hits']}, "
+          f"{red['cuda']['wall']:.1f} s vs {red['cpu']['wall']:.1f} s (lists"
+          f" equal to the full run's {sh['red_vs_full']:.4f}) | "
+          f"matmul_onehot on the first 128: recall@10={sh['oh_recall']:.4f} "
+          f"(slot_gather {sh['sg_recall']:.4f}), lists equal "
+          f"{sh['oh_same']:.4f}, launches {sh['oh_launches']} by G "
+          f"{sh['oh_lanes']}, {sh['oh_wall']:.1f} s | {smi} | "
+          f"{sh['phase_s']:.1f} s", flush=True)
+
     # launches on each kernel's path: B1/B2 on the pool (phases 3, 4); B3's
     # total, its wgmma variant and B4 on phi3's serving path (phase 7); the
     # f32 variant on phase 8's float32 server; the hd-256 wgmma variant on
@@ -979,6 +1269,9 @@ def main():
     # mma.sync variant on no served path, so its count is phase 6's
     launches.update({n: srv["launches"][n] for n in
                      ("flash_attention", "flash_wgmma", "decode_attention")})
+    # B1 and B2 add their lane launches on phase 10's megabatched path
+    launches["distance_slot_gather"] += sh["launches"]["distance_slot_gather"]
+    launches["distance_onehot"] += sh["oh_launches"]["distance_onehot"]
     launches.update(flash_fp32=cmp_["launches"]["flash_fp32"],
                     flash_wgmma256=gem["launches"]["flash_wgmma256"],
                     flash_mma=ares["launches"]["flash_mma"])
@@ -1018,6 +1311,8 @@ def main():
                 b2b_ms=r["b2b_ms"], floor_ms=r["floor_ms"],
                 floor_b2b_ms=r["floor_b2b_ms"],
                 serve_pool={k: r["serve_pool"][k] for k in keys},
+                lane_launches=(sh["lanes"] if name == "distance_slot_gather"
+                               else sh["oh_lanes"])[name],
                 lanes=[{"G": c["G"], **{k: c[k] for k in keys}}
                        for c in r["lanes"]])
         if name in ("flash_mma", "flash_fp32"):

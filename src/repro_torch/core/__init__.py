@@ -5,9 +5,10 @@
   scheduler           — §3.3 lane scheduling (EDF/FIFO/background) +
                         adaptive r/τ + stage-aware preemption policy
   trinity_pool        — shared vector-search pool (replicas, stragglers,
-                        elasticity, failures)
-  roofline_model      — the V5E-model extend price of the simulated clock
+                        elasticity, failures, online inserts, the answer
+                        cache) and its sharded, megabatched form
+  roofline_model      — the V5E-model extend prices of the simulated clock
 """
 from repro_torch.core.continuous_batching import ContinuousBatchingEngine  # noqa
 from repro_torch.core.scheduler import TwoQueueScheduler, VectorRequest  # noqa
-from repro_torch.core.trinity_pool import VectorPool  # noqa
+from repro_torch.core.trinity_pool import ShardedVectorPool, VectorPool  # noqa

@@ -1,7 +1,8 @@
 """Extend-step prices for the pool's simulated clock.
 
 A copy of the JAX package's ``core/roofline_model.py`` trimmed to what the
-pool uses: the ``Hardware`` row and ``extend_time``. The pool's clock is a
+pools use: the ``Hardware`` row, ``extend_time`` and ``extend_time_group``
+(the megabatched sharded pool's price). The pool's clock is a
 *simulated* clock priced by this model, so the port must use the same
 prices as the JAX package for its completion times to match.
 
@@ -36,3 +37,21 @@ def extend_time(pool_cfg, hw: Hardware = V5E, active_tasks: int | None = None) -
     mem = T * d * 4 / hw.hbm_bw
     flops = 2.0 * T * d / hw.peak_flops
     return hw.launch_floor + max(mem, flops)
+
+
+def extend_time_group(pool_cfg, cohort: int, double_buffer: bool = False,
+                      hw: Hardware = V5E) -> float:
+    """Per-member extend time inside a megabatched cohort: ``cohort``
+    lanes share ONE fixed-shape dispatch, so the launch floor (a host-side
+    per-dispatch cost) amortises across them while each lane still pays
+    its own memory/compute term. With double buffering the host dispatch
+    work overlaps the previous chunk's device compute, so the per-step
+    cost is the max of the two instead of their sum. ``cohort=1`` without
+    double buffering reduces exactly to :func:`extend_time`."""
+    T = pool_cfg.task_batch
+    d = pool_cfg.dim
+    mem = T * d * 4 / hw.hbm_bw
+    flops = 2.0 * T * d / hw.peak_flops
+    dev = max(mem, flops)
+    host = hw.launch_floor / max(cohort, 1)
+    return max(host, dev) if double_buffer else host + dev

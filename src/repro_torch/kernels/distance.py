@@ -23,7 +23,7 @@ Their plain-PyTorch versions are ``kernels/ref.py::distance_tasks_ref`` and
 wrappers below take CUDA tensors only: they check every input, allocate the
 output with ``torch.empty``, launch on the current stream without
 synchronising, raise on a launch error, and count their launches in
-``launches`` (one a launch, whatever G).
+``launches`` (one a launch, whatever G) and in ``lane_launches`` by G.
 """
 from __future__ import annotations
 
@@ -36,6 +36,9 @@ from repro_torch.kernels import _build
 # kernel name -> launches since the last reset (read by chip_smoke.py to
 # prove the main path went through the kernels)
 launches = {"distance_slot_gather": 0, "distance_onehot": 0}
+# kernel name -> {G: launches over G lanes} since the last reset (shows that
+# a megabatched path's launches are grouped, and at which G)
+lane_launches = {name: {} for name in launches}
 
 _ENTRY = {"distance_slot_gather": "repro_distance_slot_gather",
           "distance_onehot": "repro_distance_onehot"}
@@ -59,6 +62,7 @@ def _entry(name: str):
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+        lane_launches[name].clear()
 
 
 def check_inputs(db, queries, task_ids, task_slot, metric: str) -> None:
@@ -126,6 +130,7 @@ def _launch(name: str, dbs, queries, task_ids, task_slot, metric: str):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches[name] += 1
+    lane_launches[name][G] = lane_launches[name].get(G, 0) + 1
     return out
 
 

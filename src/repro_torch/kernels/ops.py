@@ -1,6 +1,7 @@
 """Device dispatchers for the port's kernels (the JAX package's
 ``kernels/ops.py``: ``distance_tasks``, ``flash_attention`` and
-``decode_attention``, same signatures).
+``decode_attention``, same signatures), and the sharded pool's three
+partial-top-k merges as torch ops on their tensors' device.
 
 CUDA tensors go to the Hopper kernels; CPU tensors go to the plain-PyTorch
 versions. There is no fallback: a CUDA tensor never reaches the plain
@@ -8,12 +9,72 @@ version, and a kernel that fails to build or launch raises.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import distance as _dist
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.vector.cagra import smallest_k
 
 MODES = ("slot_gather", "matmul_onehot")
+_INF = 1e30
+
+
+def merge_partial_topk(ids, dists, *, k: int):
+    """Scatter–gather merge: per-shard partial top-k lists into the global
+    top-k. ids (..., S, K) int32 global row ids (−1 = padding), dists
+    (..., S, K) float32 (numpy arrays or tensors). Returns tensors (ids
+    (..., k) int32, dists (..., k) float32) ascending, −1/1e30 padded when
+    fewer than ``k`` valid entries exist.
+
+    One selection over the flattened S·K pool; ties break to the lower flat
+    index (shard order), as ``jax.lax.top_k`` does in the JAX package: a
+    stable ascending sort (``vector/cagra.py::smallest_k``), never
+    ``torch.topk``, whose tie order is not specified."""
+    ids = torch.as_tensor(ids)
+    dists = torch.as_tensor(dists, device=ids.device)
+    pool = ids.shape[-2] * ids.shape[-1]
+    assert k <= pool, (k, tuple(ids.shape))
+    flat_ids = ids.reshape(ids.shape[:-2] + (pool,))
+    flat_d = torch.where(flat_ids >= 0,
+                         dists.reshape(flat_ids.shape).float(), _INF)
+    out_d, sel = smallest_k(flat_d, k)
+    out_ids = torch.where(out_d < _INF, flat_ids.gather(-1, sel), -1)
+    return out_ids, out_d
+
+
+def fold_partial_topk(buf_ids, buf_dists, top_ids, top_dists, trans, g_idx,
+                      slots, rows, cols):
+    """On-device fold: each completing child's (M,) partial list, read from
+    the grouped engine state at (lane g_idx, slot), translated shard-local →
+    global through ``trans`` (S, T) (−1 = tombstoned; a local id past T − 1
+    clips to the last column, a −1 sentinel) and written into its parent's
+    merge-buffer row ``rows`` at shard column ``cols``, in place.
+
+    buf_ids/buf_dists (P, S, M); top_ids/top_dists (G, R, M); g_idx, slots,
+    rows, cols (B,) int64 tensors. The pool pads B to a power of two by
+    repeating entry 0, so duplicate writes store identical values. Returns
+    the buffers."""
+    cid = top_ids[g_idx, slots]  # (B, M) shard-local ids
+    cd = top_dists[g_idx, slots]
+    safe = cid.long().clamp(0, trans.shape[1] - 1)
+    gid = torch.where(cid >= 0, trans[cols[:, None], safe], -1)
+    buf_ids[rows, cols] = gid.to(buf_ids.dtype)
+    buf_dists[rows, cols] = cd
+    return buf_ids, buf_dists
+
+
+def finalize_partial_topk(buf_ids, buf_dists, rows_f, *, k: int):
+    """Finish the parents whose merge-buffer rows are complete: one
+    ``merge_partial_topk`` per row over its (S, M) pool, then clear the rows
+    for reuse (in place). ``rows_f`` (F,) int64, power-of-two padded by
+    repeating entry 0 (re-merging and re-clearing a row is idempotent).
+    Returns (buf_ids, buf_dists, merged ids (F, k), merged dists (F, k))."""
+    m_ids, m_d = merge_partial_topk(buf_ids[rows_f], buf_dists[rows_f], k=k)
+    buf_ids[rows_f] = -1
+    buf_dists[rows_f] = _INF
+    return buf_ids, buf_dists, m_ids, m_d
 
 
 def _on_card(t) -> bool:

@@ -582,3 +582,210 @@ def test_real_server_on_card_matches_cpu(cuda):
     want, want_stats = cpu.generate(prompts, max_new=8)
     np.testing.assert_array_equal(toks, want)
     assert stats["rag_probes"] == want_stats["rag_probes"]
+
+
+# ---------------------------------------------------------------------------
+# the online index and the sharded, megabatched pool on the card
+# ---------------------------------------------------------------------------
+
+
+def _small_corpus(n=1920, d=16, seed=2):
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(size=(12, d)) * 3
+    db = (centres[rng.integers(0, 12, n)] + rng.normal(size=(n, d)))
+    q = (centres[rng.integers(0, 12, 64)] + rng.normal(size=(64, d)))
+    return db.astype(np.float32), q.astype(np.float32)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_insert_batch_on_card_matches_cpu(cuda, metric):
+    from repro_torch.vector.online import insert_batch
+
+    rng = np.random.default_rng(3)
+    N, d, D, base = 96, 16, 8, 32
+    db = np.zeros((N, d), np.float32)
+    db[:base + 20] = rng.normal(size=(base + 20, d))
+    graph = np.full((N, D), -1, np.int32)
+    graph[base:base + 20, :5] = rng.integers(base, base + 20, (20, 5))
+    rows = np.asarray(list(range(base + 20, base + 25)) + [-1] * 3, np.int32)
+    vecs = rng.normal(size=(8, d)).astype(np.float32)
+    nbrs = rng.integers(base, base + 25, (8, D)).astype(np.int32)
+    nbrs[rng.random((8, D)) < 0.3] = -1
+    out = {}
+    for dev in ("cpu", cuda):
+        tdb, tgraph, touched = insert_batch(
+            torch.as_tensor(db, device=dev), torch.as_tensor(graph, device=dev),
+            rows, vecs, nbrs, metric=metric)
+        out[str(dev)] = (tdb.cpu(), tgraph.cpu(), touched)
+    (a_db, a_g, a_t), (b_db, b_g, b_t) = out.values()
+    assert torch.equal(a_db, b_db) and torch.equal(a_g, b_g) and a_t == b_t
+
+
+def test_online_index_stream_on_card_matches_cpu(cuda):
+    from repro_torch.vector.online import OnlineIndex
+
+    db, _ = _small_corpus(600)
+    graph = np.random.default_rng(0).integers(0, 600, (600, 8)).astype(
+        np.int32)
+    idx = {dev: OnlineIndex(db, graph, cache_capacity=16, max_entries=10,
+                            ttl=30.0, device=dev) for dev in ("cpu", "cuda")}
+    rng = np.random.default_rng(4)
+    rows = []
+    for i in range(60):
+        v = rng.normal(size=16).astype(np.float32)
+        cand = rows[-8:] if i % 2 else None
+        got = {dev: ix.insert(v, cand, t_now=float(i))
+               for dev, ix in idx.items()}
+        assert got["cpu"] == got["cuda"]
+        rows.append(got["cpu"])
+        assert idx["cpu"].drain_evicted() == idx["cuda"].drain_evicted()
+    assert torch.equal(idx["cpu"].db, idx["cuda"].db.cpu())
+    assert torch.equal(idx["cpu"].graph, idx["cuda"].graph.cpu())
+
+
+def _sharded_pool(device, db, **kw):
+    from repro_torch.configs.base import VectorPoolConfig
+    from repro_torch.core import ShardedVectorPool
+
+    cfg = VectorPoolConfig(**dict(dict(
+        num_vectors=len(db), dim=db.shape[1], graph_degree=8,
+        max_requests=8, top_m=16, task_batch=256, visited_slots=256,
+        top_k=10, num_shards=4, semantic_cache_enabled=True,
+        cache_capacity=16), **kw))
+    return ShardedVectorPool(cfg, db, device=device, seed=0,
+                             replicas_per_shard=2)
+
+
+def _drive_sharded(pool, queries, inserts):
+    from repro_torch.core import VectorRequest
+
+    t = 0.0
+    for i in range(40):
+        pool.submit(VectorRequest(i, "prefill", queries[i % 64], t, t + 1.0))
+        if i % 5 == 2:
+            pool.submit_insert(inserts[i // 5], meta={"i": i}, t_now=t)
+        t += 1e-5
+    pool.run_until(t + 1.0)
+    t += 1.0
+    for j in range(8):
+        pool.submit(VectorRequest(100 + j, "cache_lookup", inserts[j], t,
+                                  t + 1.0))
+    pool.run_until(t + 1.0)
+    return pool
+
+
+@pytest.mark.parametrize("mega", [True, False])
+def test_sharded_pool_on_card_matches_cpu(cuda, mega):
+    """The sharded pool with inserts and cache lookups: completions, ids
+    and their order, simulated times and counters equal on the card and
+    on the CPU; on the megabatched arm every distance launch is grouped,
+    over the pool's 8 lanes."""
+    from repro_torch.kernels import distance
+
+    db, queries = _small_corpus()
+    inserts = np.random.default_rng(9).normal(size=(8, 16)).astype(
+        np.float32) * 3
+    knobs = dict(megabatch_enabled=mega, device_merge_enabled=mega,
+                 double_buffer_enabled=mega)
+    cpu = _drive_sharded(_sharded_pool("cpu", db, **knobs), queries, inserts)
+    distance.reset_launches()
+    card = _drive_sharded(_sharded_pool("cuda", db, **knobs), queries,
+                          inserts)
+    torch.cuda.synchronize()
+    a, b = cpu.metrics.completed, card.metrics.completed
+    assert [r.rid for r in a] == [r.rid for r in b]
+    for x, y in zip(a, b):
+        assert (x.t_completed, x.extends_used) == (y.t_completed,
+                                                   y.extends_used)
+        if x.result_ids is None:
+            assert y.result_ids is None
+            continue
+        np.testing.assert_array_equal(x.result_ids, y.result_ids)
+        np.testing.assert_allclose(x.result_dists, y.result_dists,
+                                   rtol=1e-5, atol=1e-4)
+    for f in ("extend_steps", "tasks_emitted", "inserts", "broadcasts",
+              "merges", "sub_searches"):
+        assert getattr(cpu.metrics, f) == getattr(card.metrics, f), f
+    lanes = distance.lane_launches["distance_slot_gather"]
+    if mega:
+        assert set(lanes) == {8} and lanes[8] > 0
+    else:
+        assert set(lanes) == {1}
+
+
+def test_grouped_chunk_lanes_equal_single_engines(cuda):
+    """One grouped chunk over G lanes (each its own index and requests)
+    leaves every lane's state equal to a single engine's after the same
+    chunk; the distance stage is one lane launch a step."""
+    from repro_torch.configs.base import VectorPoolConfig
+    from repro_torch.core.continuous_batching import (ContinuousBatchingEngine,
+                                                      GroupEngine)
+    from repro_torch.kernels import distance
+    from repro_torch.vector.online import OnlineIndex
+
+    cfg = VectorPoolConfig(num_vectors=500, dim=16, graph_degree=8,
+                           max_requests=8, top_m=16, task_batch=256,
+                           visited_slots=256, extend_chunk=4)
+    rng = np.random.default_rng(5)
+    group = GroupEngine(cfg, device="cuda")
+    members, singles = [], []
+    for g in range(5):  # grows the lane axis 4 -> 8
+        n = 400 + 20 * g
+        ix = OnlineIndex(rng.normal(size=(n, 16)).astype(np.float32),
+                         rng.integers(0, n, (n, 8)).astype(np.int32),
+                         device="cuda")
+        members.append(group.add_member(ix, seed=g))
+        singles.append(ContinuousBatchingEngine(cfg, ix.db, ix.graph,
+                                                device="cuda", seed=g))
+        reqs = [(10 * g + i, rng.normal(size=16).astype(np.float32))
+                for i in range(3 + g)]
+        members[-1].admit_batch(reqs)
+        singles[-1].admit_batch(reqs)
+    distance.reset_launches()
+    done = group.step_lanes([m.lane for m in members[:4]], 4)
+    assert distance.lane_launches["distance_slot_gather"] == {8: 4}
+    for m, e in zip(members[:4], singles[:4]):
+        e.step_multi(4)
+        for f in ("top_ids", "top_dists", "expanded", "visited", "active",
+                  "extends"):
+            assert torch.equal(getattr(group.state, f)[m.lane],
+                               getattr(e.state, f)), f
+    frozen = members[4].lane  # outside the cohort: untouched
+    assert done[0][:, frozen].sum() == 0
+    assert int(group.state.extends[frozen].sum()) == 0
+
+
+def test_sharded_pool_lane_stack_grows_on_card(cuda):
+    """A shard's cache grows past the stacked row count mid-run on the
+    card: the stack doubles, every lane keeps its rows, and the results
+    equal the CPU run's."""
+    db, queries = _small_corpus(1920)
+    rng = np.random.default_rng(1)
+    vecs = [db[3] + rng.normal(0, 0.05, 16).astype(np.float32)
+            for _ in range(70)]
+    pools = {dev: _sharded_pool(dev, db, num_shards=2)
+             for dev in ("cpu", "cuda")}
+    for pool in pools.values():
+        from repro_torch.core import VectorRequest
+
+        assert pool._group.n_max == 1024
+        t = 0.0
+        for i, v in enumerate(vecs):
+            pool.submit_insert(v, t_now=t)
+            pool.submit(VectorRequest(i, "prefill", queries[i % 64], t,
+                                      t + 10.0))
+            t += 2e-4
+            pool.run_until(t)
+        pool.run_until(t + 5.0)
+        assert pool._group.n_max == 2048
+        for rep in pool.replicas:
+            sh = pool.shards.shards[rep.shard]
+            assert torch.equal(pool._group.dbs[rep.engine.lane,
+                                               :sh.db.shape[0]], sh.db)
+    a = pools["cpu"].metrics.completed
+    b = pools["cuda"].metrics.completed
+    assert [r.rid for r in a] == [r.rid for r in b]
+    for x, y in zip(a, b):
+        assert x.t_completed == y.t_completed
+        if x.result_ids is not None:
+            np.testing.assert_array_equal(x.result_ids, y.result_ids)

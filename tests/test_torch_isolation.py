@@ -68,8 +68,11 @@ def test_cuda_requested_without_card_raises(monkeypatch):
     """Asking for the card where there is none raises; nothing quietly
     runs on the CPU."""
     from repro_torch import convert
-    from repro_torch.core import VectorPool
-    from repro_torch.core.continuous_batching import ContinuousBatchingEngine
+    from repro_torch.core import ShardedVectorPool, VectorPool
+    from repro_torch.core.continuous_batching import (ContinuousBatchingEngine,
+                                                      GroupEngine)
+    from repro_torch.vector.ivf import IVFFlat
+    from repro_torch.vector.shards import ShardedIndex
     from repro_torch.device import resolve_device
     from repro_torch.vector.graph import build_knn_graph_exact, make_cagra_graph
     from repro_torch.vector.online import OnlineIndex
@@ -86,6 +89,10 @@ def test_cuda_requested_without_card_raises(monkeypatch):
     calls = [lambda: resolve_device(),
              lambda: resolve_device("cuda:0"),
              lambda: VectorPool(cfg, db, graph),
+             lambda: ShardedVectorPool(cfg, db),
+             lambda: ShardedIndex(db, num_shards=2, build_graphs=False),
+             lambda: GroupEngine(cfg),
+             lambda: IVFFlat(db, nlist=4, iters=1),
              lambda: ContinuousBatchingEngine(cfg, db, graph),
              lambda: OnlineIndex(db, graph),
              lambda: convert.index_from_numpy(db, graph),

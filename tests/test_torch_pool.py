@@ -153,16 +153,30 @@ def test_cancel_drain_and_elastic_match_jax(data):
 
 
 def test_unported_features_raise(data):
+    """The runtime sanitizer (ROADMAP item 11) and the sharded pool's
+    rebalancing, shard loss and cache backup (item A9b) raise; the answer
+    cache and online inserts, ported since, work."""
     db, graph, queries = data
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 11"):
         tcore.VectorPool(TConfig(**CFG, sanitizer_enabled=True), db, graph,
                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        tcore.VectorPool(TConfig(**CFG, semantic_cache_enabled=True), db,
-                         graph, device="cpu")
-    pool = tcore.VectorPool(TConfig(**CFG), db, graph, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pool.submit_insert(queries[0])
+    pool = tcore.VectorPool(TConfig(**CFG, semantic_cache_enabled=True),
+                            db, graph, device="cpu")
+    row = pool.submit_insert(queries[0], meta={"tokens": 1})
+    assert row == len(db) and pool.cache_size == 1
+    assert pool.submit_insert(queries[1]) is None  # rides the scheduler
+    pool.run_until(1.0)
+    assert pool.cache_size == 2 and pool.metrics.inserts == 2
+    assert pool.meta_at(row, 1.0) == {"tokens": 1}
+    sharded = dict(CFG, num_shards=2, semantic_cache_enabled=True)
+    for kw in (dict(rebalance_enabled=True),
+               dict(cache_backup_enabled=True)):
+        with pytest.raises(NotImplementedError, match="A9b"):
+            tcore.ShardedVectorPool(TConfig(**sharded, **kw), db,
+                                    device="cpu")
+    spool = tcore.ShardedVectorPool(TConfig(**sharded), db, device="cpu")
+    with pytest.raises(NotImplementedError, match="A9b"):
+        spool.lose_shard(0)
 
 
 def test_replicas_share_one_index(data):

@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
 """Where the port's pool spends a chunk on the card: a ``torch.profiler``
 trace over a steady window of the sift1m-shape cell (the corpus, graph,
-engine and stream of ``chip_smoke.py`` phase 3).
+engine and stream of ``chip_smoke.py`` phase 3), or with ``--sharded`` of
+the sharded-sift1m-shape cell (``chip_smoke.py`` phase 10: 4 shards x 2
+replicas, 8 lanes of one grouped engine, inserts interleaved).
 
-    python3 tools/profile_torch_pool.py     # one NVIDIA GPU
+    python3 tools/profile_torch_pool.py [--sharded]    # one NVIDIA GPU
 
 Prints the window's wall time, the device busy share (union of kernel and
 copy intervals over the window), kernels launched per extend step, the
 kernels that take the most device time, and the distance kernels' launches
-and mean device time per launch. The trace itself is written under
-``build/profile/`` (not kept in the repository).
+and mean device time per launch. With ``--sharded`` it also reports the
+double buffer: the host time spent releasing arrivals while a grouped
+chunk is in flight, the share of it during which the card was busy, and
+the synchronising CUDA calls inside it (none, if the overlap is real). The
+trace itself is written under ``build/profile/`` (not kept in the
+repository).
 """
 import json
 import re
@@ -36,9 +42,55 @@ def busy_us(intervals):
     return total
 
 
+def overlap_us(spans, intervals):
+    """Length of the parts of ``spans`` covered by the union of
+    ``intervals``."""
+    merged, end = [], float("-inf")
+    for a, b in sorted(intervals):
+        if a > end:
+            merged.append([a, b])
+            end = b
+        elif b > end:
+            merged[-1][1] = end = b
+    total = 0.0
+    for a, b in spans:
+        for c, d in merged:
+            total += max(0.0, min(b, d) - max(a, c))
+    return total
+
+
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+         "cudaEventSynchronize", "cudaMemcpy", "cudaStreamWaitEvent")
+
+
+def sharded_pool(db, queries, stream):
+    """chip_smoke.py phase 10's pool and traffic (inserts interleaved),
+    submitted and not yet run."""
+    from chip_smoke import (N, N_INSERT, N_LOOKUP, SHARDED, SHARDS, D_IM,
+                            sharded_stream)
+    from repro_torch.configs.base import VectorPoolConfig
+    from repro_torch.core import ShardedVectorPool, VectorRequest
+    from repro_torch.vector.dataset import make_dataset
+
+    cfg = VectorPoolConfig(num_vectors=N, dim=D_IM, **SHARDED)
+    pool = ShardedVectorPool(cfg, db, device="cuda", seed=0,
+                             exact_threshold=-(-N // SHARDS))
+    inserts, fresh = make_dataset(N_INSERT, D_IM, seed=7,
+                                  num_queries=N_LOOKUP // 2)
+    events, _ = sharded_stream(stream, queries, inserts, fresh, N_INSERT,
+                               N_LOOKUP)
+    for t, what, x in events:
+        if what == "probe":
+            rid, kind, q, ddl = x
+            pool.submit(VectorRequest(rid, kind, q, t, ddl))
+        else:
+            pool.submit_insert(inserts[x], meta={"insert": x}, t_now=t)
+    return pool
+
+
 def main():
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from chip_smoke import N, NUM_QUERIES, quickstart_stream
     from repro_torch.configs.base import VectorPoolConfig
@@ -48,17 +100,41 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: CUDA is not available")
+    sharded = "--sharded" in sys.argv[1:]
     cfg = VectorPoolConfig(num_vectors=N, dim=128)
     db, queries = make_dataset(N, 128, seed=0, num_queries=NUM_QUERIES)
-    graph = make_cagra_graph(db, cfg.graph_degree, exact_threshold=N,
-                             device="cuda")
     stream = quickstart_stream(NUM_QUERIES)
-    pool = VectorPool(cfg, db, graph, device="cuda", seed=0)
-    for rid, kind, t, ddl in stream:
-        pool.submit(VectorRequest(rid, kind, queries[rid], t, ddl))
+    if sharded:
+        pool = sharded_pool(db, queries, stream)
+        release, group = pool._release_pending, pool._group
+        launch = group.step_lanes_async
+        state = {"in_flight": False, "extends": 0}
+
+        def launch_marked(lanes, k):
+            state["in_flight"] = True
+            state["extends"] += k  # grouped extends: one launch each
+            return launch(lanes, k)
+
+        def release_marked(t):
+            # only the release the double buffer runs with a chunk in flight
+            if not state["in_flight"]:
+                return release(t)
+            state["in_flight"] = False
+            with record_function("host: release arrivals (chunk in flight)"):
+                return release(t)
+
+        pool._release_pending = release_marked
+        group.step_lanes_async = launch_marked
+    else:
+        graph = make_cagra_graph(db, cfg.graph_degree, exact_threshold=N,
+                                 device="cuda")
+        pool = VectorPool(cfg, db, graph, device="cuda", seed=0)
+        for rid, kind, t, ddl in stream:
+            pool.submit(VectorRequest(rid, kind, queries[rid], t, ddl))
     t_mid = stream[NUM_QUERIES // 3][2]
     pool.run_until(t_mid)  # warm: kernels built, allocator primed
     steps0 = pool.metrics.extend_steps
+    g0 = state["extends"] if sharded else 0
     torch.cuda.synchronize()
     out_dir = ROOT / "build" / "profile"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -69,6 +145,8 @@ def main():
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     steps = pool.metrics.extend_steps - steps0
+    if sharded:  # a grouped extend steps every lane: count it once
+        steps = state["extends"] - g0
     trace = out_dir / "pool_trace.json"
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
@@ -83,7 +161,9 @@ def main():
     dist = [e["dur"] for e in kernels if "distance_" in e["name"]]
     dist_names = sorted({re.search(r"distance_\w+", e["name"]).group()
                          for e in kernels if "distance_" in e["name"]})
-    print(f"profile: window {wall_us / 1e3:.1f} ms wall, {steps} extend "
+    mode = "sharded-sift1m-shape (grouped chunks over 8 lanes)" if sharded \
+        else "sift1m-shape"
+    print(f"profile {mode}: window {wall_us / 1e3:.1f} ms wall, {steps} extend "
           f"steps ({wall_us / max(steps, 1):.0f} us wall per step), device "
           f"busy {busy / 1e3:.2f} ms = {busy / wall_us:.4f} of the window, "
           f"{len(kernels)} kernels ({len(kernels) / max(steps, 1):.1f} per "
@@ -91,6 +171,21 @@ def main():
           f"time: {top} | distance kernels {dist_names}: {len(dist)} "
           f"launches, {sum(dist) / max(len(dist), 1):.3f} us each on the "
           "card", flush=True)
+    if sharded:
+        spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("ph") == "X" and e.get("name", "").startswith(
+                     "host: release arrivals")]
+        syncs = [e for e in events if e.get("ph") == "X"
+                 and e.get("name") in SYNCS
+                 and any(a <= e["ts"] < b for a, b in spans)]
+        host = sum(b - a for a, b in spans)
+        covered = overlap_us(spans, [(e["ts"], e["ts"] + e["dur"])
+                                     for e in dev])
+        print(f"double buffer: {len(spans)} arrival releases with a grouped "
+              f"chunk in flight, {host:.0f} us of host time, the card busy "
+              f"{covered:.0f} us of it ({covered / max(host, 1e-9):.4f}), "
+              f"{len(syncs)} synchronising CUDA calls inside them "
+              f"({sorted({e['name'] for e in syncs})})", flush=True)
     print(torch.cuda.get_device_name(0))
 
 
