@@ -70,14 +70,29 @@ line is printed only when every phase passed):
     then 256 cache lookups (half repeat an insert); every request completed
     once, recall@10 >= 0.3, inserts broadcast to their owning shard's two
     replicas only, at least half the repeats hit, every grouped extend's
-    distance stage one 8-lane launch of B1; the first 256 probes, 64
-    inserts and 64 repeat lookups again on the card and on the CPU over
+    distance stage one 8-lane launch of B1; the first 128 probes, 32
+    inserts and 32 repeat lookups again on the card and on the CPU over
     clones of the shards (>= 99% equal lists, recall within 0.005, equal
     hits); the first 128 probes with matmul_onehot (B2's lane form, recall
     within 0.01)
+ 11 the Trinity cluster (rag-cluster-sift1m-shape): ClusterSim with
+    phi3-medium-14b at its published widths priced on V5E, disaggregated,
+    2 prefill + 2 decode instances, over phase 10's pool (a clone of its
+    shards) with rebalancing, the cache backup and the sanitizer on; the
+    drifting-mix trace (bulk prefill, RAG decode with a probe every token,
+    repeat chat) and a fixed fault list (a replica killed, a straggler, a
+    shard lost, a decode instance killed) armed on the sim; every request
+    finished once, every vector request completed once (or cancelled with
+    its instance), the sanitizer clean, every cache entry of the lost shard
+    recovered, repeats hit the answer cache, every grouped extend one lane
+    launch of B1; then the fixture cluster (make_sharded_pool_sim, 6,000 x
+    64 in 4 shards) with the autoscaler and the same kinds of faults, on
+    the card and on the CPU: equal summaries, signals, scale events and
+    vector results
 
-The pool's clock is simulated and priced by the JAX package's V5E model;
-no latency from that clock is printed. Every time printed here is a host
+The pool's and the cluster's clocks are simulated and priced by the JAX
+package's V5E model; phase 11 prints its simulated TTFT and TPOT labelled
+so, and no other latency from that clock is printed. Every time printed here is a host
 wall clock or a CUDA-event time measured on the card in this run.
 """
 import dataclasses
@@ -850,7 +865,7 @@ def phase_sharded(db, queries, stream, true_ids):
     (8 lanes of one GroupEngine), the answer cache on, exact shard graphs
     built on the card; the quickstart stream with 256 inserts, then 256
     cache lookups; every grouped chunk's distance stage one lane launch.
-    The first 256 probes with the first 64 inserts and their 64 repeat
+    The first 128 probes with the first 32 inserts and their 32 repeat
     lookups run again on the card and on the CPU over clones of the same
     shards (equal lists and hits), and the first 128 probes with their 32
     inserts on the card with distance_mode="matmul_onehot" (B2's lane
@@ -877,6 +892,7 @@ def phase_sharded(db, queries, stream, true_ids):
     sizes = [len(r) for r in shards.shard_rows]
     reduced_card, onehot_card = shards.clone(), shards.clone()
     reduced_cpu = shards.clone("cpu")
+    cluster_card = shards.clone()  # phase 11's pool
     inserts, fresh = make_dataset(N_INSERT, D_IM, seed=7,
                                   num_queries=N_LOOKUP // 2)
     events, lookups = sharded_stream(stream, queries, inserts, fresh,
@@ -921,9 +937,9 @@ def phase_sharded(db, queries, stream, true_ids):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the first 256 probes + first 64 inserts + their 64 repeat lookups,
+    # the first 128 probes + first 32 inserts + their 32 repeat lookups,
     # on the card and on the CPU over clones of the same shards
-    n_red = 256
+    n_red = 128  # the CPU run of these is the phase's largest cost
     red_events = [e for e in events
                   if (e[1] == "probe" and e[2][0] < n_red)
                   or (e[1] == "insert" and e[2] < n_red // 4)]
@@ -947,7 +963,7 @@ def phase_sharded(db, queries, stream, true_ids):
     check(runs["cuda"]["hits"] == runs["cpu"]["hits"],
           f"repeat hits {runs['cuda']['hits']} (card) vs "
           f"{runs['cpu']['hits']} (CPU)")
-    out.update(red_same=same, red=runs,
+    out.update(red_same=same, red=runs, n_red=n_red,
                red_vs_full=float((runs["cuda"]["ids"] == ids[:n_red])
                                  .all(1).mean()))
 
@@ -977,7 +993,267 @@ def phase_sharded(db, queries, stream, true_ids):
                oh_launches=oh_launches, oh_lanes=oh_lanes,
                oh_same=float((oh_ids == runs["cuda"]["ids"][:n_oh])
                              .all(1).mean()),
+               cluster_shards=cluster_card,
                phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+# phase 11's cluster (rag-cluster-sift1m-shape): phi3-medium-14b priced on
+# V5E, 2 prefill + 2 decode instances, phase 10's pool with rebalancing,
+# the cache backup and the sanitizer on, the drifting-mix trace and a fixed
+# fault list; the fixture run (make_sharded_pool_sim) on the card and the CPU
+CLUSTER_T_TRACE, CLUSTER_RPS, CLUSTER_SEED = 1.5, 30.0, 0
+CLUSTER_TAIL = 1.0  # simulated seconds after the last arrival
+CLUSTER_POOL = dict(SHARDED, rebalance_enabled=True, cache_backup_enabled=True,
+                    sanitizer_enabled=True)
+# benchmarks/bench_autoscale.py's controller (its --smoke budget raised to
+# the fixture cluster's 2 + 2 + 6 units plus 2 to grant)
+FIXTURE_CONTROLLER = dict(
+    epoch_s=0.02, window_s=0.3, ttft_slo_s=0.150, tpot_slo_s=0.008,
+    probe_miss_budget=0.1, gpu_budget=12, queue_target=2.0,
+    queue_target_vector=4.0, hot_factor=1.0, cold_factor=0.5,
+    cooldown_up_s=0.06, cooldown_down_s=0.12, itl_protect_factor=1.2)
+FIXTURE_RPS, FIXTURE_T_TRACE, FIXTURE_T_END = 80.0, 0.25, 0.8
+
+
+def cluster_faults(chaos, t_trace):
+    """Phase 11's fixed fault list over a trace of ``t_trace`` simulated
+    seconds: a replica killed (respawned after its downtime), a straggler,
+    the fullest cache-holding shard lost, a decode instance killed. The
+    decode instance is not revived within the run: a revive while the
+    instance had a decode step pending leaves it marked as stepping, and
+    requests admitted to it afterwards never decode, in the JAX package as
+    here (ROADMAP Queue C)."""
+    T = t_trace
+    return [chaos.FaultEvent(0.30 * T, "kill_replica", duration=0.10 * T),
+            chaos.FaultEvent(0.45 * T, "straggle_replica", factor=8.0,
+                             duration=0.10 * T),
+            chaos.FaultEvent(0.70 * T, "lose_shard", duration=0.10 * T),
+            chaos.FaultEvent(0.80 * T, "kill_decode", duration=1e3)]
+
+
+def drive_cluster(sim, reqs, faults, t_end):
+    """Arm ``faults`` on ``sim``, offer ``reqs`` and run it to ``t_end``,
+    recording every vector request the pool took, every cancel, every
+    shard loss (with the cache entries the shard held), every grouped
+    chunk and the wall of every poll. Returns a dict of the records."""
+    import torch
+
+    from repro_torch.serving.chaos import ChaosInjector
+
+    pool = sim.vector_pool
+    card = pool.device.type == "cuda"
+    rec = dict(submitted=[], placed=[], cancelled=[], losses=[], chunks=[],
+               polls=[], idle_polls=[])
+    submit, submit_insert = pool.submit, pool.submit_insert
+    cancel, lose_shard = pool.cancel, pool.lose_shard
+    poll = sim._poll_pool
+
+    def rec_submit(req):
+        rec["submitted"].append((req.rid, req.kind))
+        return submit(req)
+
+    def rec_insert(*a, **kw):
+        gid = submit_insert(*a, **kw)
+        if gid is not None:  # placed at once: no search to run
+            rec["placed"].append(gid)
+        return gid
+
+    def rec_cancel(rid):
+        found = cancel(rid)
+        if found:
+            rec["cancelled"].append(rid)
+        return found
+
+    def rec_lose(s):
+        rec["losses"].append((s, pool.shards.shards[s].cache_size))
+        return lose_shard(s)
+
+    def rec_poll():
+        n = len(rec["chunks"])
+        t0 = time.perf_counter()
+        poll()
+        dt = time.perf_counter() - t0
+        rec["polls"].append(dt)
+        if len(rec["chunks"]) == n:
+            rec["idle_polls"].append(dt)
+
+    pool.submit, pool.submit_insert = rec_submit, rec_insert
+    pool.cancel, pool.lose_shard = rec_cancel, rec_lose
+    sim._poll_pool = rec_poll
+    if pool._group is not None:
+        step = pool._group.step_lanes_async
+
+        def counted_step(lanes, k):
+            rec["chunks"].append(k)
+            return step(lanes, k)
+
+        pool._group.step_lanes_async = counted_step
+    inj = ChaosInjector(faults, seed=CLUSTER_SEED)
+    inj.arm(sim)
+    for r in reqs:
+        sim.arrive(r)
+    if card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(t_end)
+    if card:
+        torch.cuda.synchronize()
+    rec.update(wall_s=time.perf_counter() - t0, log=inj.log,
+               injected=inj.injected)
+    return rec
+
+
+def check_cluster(sim, reqs, rec):
+    """Phase 11's checks on one cluster run: every offered request finished
+    once, every vector request the pool took completed once (or was
+    cancelled by its dead instance), the sanitizer clean, each shard loss
+    recovered every cache entry it held. Returns the vector requests'
+    counts by kind."""
+    pool = sim.vector_pool
+    fin = [r.rid for r in sim.metrics.finished]
+    check(sorted(fin) == sorted(r.rid for r in reqs),
+          f"{len(fin)} requests finished ({len(set(fin))} distinct) for "
+          f"{len(reqs)} offered")
+    done = [r.rid for r in pool.metrics.completed]
+    took = [rid for rid, _ in rec["submitted"]]
+    check(len(done) == len(set(done)), "a vector request completed twice")
+    check(len(took) == len(set(took)), "a vector rid was submitted twice")
+    check(not set(done) & set(rec["cancelled"])
+          and set(done) | set(rec["cancelled"]) == set(took),
+          f"{len(took)} vector requests taken, {len(done)} completed, "
+          f"{len(rec['cancelled'])} cancelled: not each exactly once")
+    pool.sanitizer.assert_clean()
+    m = pool.metrics
+    held = sum(n for _, n in rec["losses"])
+    check(rec["losses"] and held > 0 and m.cache_lost == 0
+          and m.cache_recovered == held,
+          f"shard losses {rec['losses']}: cache_lost {m.cache_lost}, "
+          f"recovered {m.cache_recovered} of {held}")
+    counts = {}
+    for _, kind in rec["submitted"]:
+        counts[kind] = counts.get(kind, 0) + 1
+    counts["insert_placed"] = len(rec["placed"])
+    return counts
+
+
+def phase_cluster(db, shards, device="cuda"):
+    """Phase 11: the Trinity cluster (rag-cluster-sift1m-shape). ClusterSim
+    with phi3-medium-14b at its published widths (priced on V5E),
+    disaggregated, trinity policy, 2 prefill + 2 decode instances, decode
+    batch 8, over phase 10's pool (``shards``: a clone of its index) with
+    rebalancing, the cache backup and the sanitizer on; the drifting-mix
+    trace and a fixed fault list armed on the sim. Then the fixture cluster
+    (``make_sharded_pool_sim``, 6,000 x 64 in 4 shards) with the autoscaler
+    and a short fault list, on the card and on the CPU: equal summaries,
+    signals, scale events and probe results."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import AutoscalerConfig, VectorPoolConfig
+    from repro_torch.kernels import distance
+    from repro_torch.serving import chaos
+    from repro_torch.serving.cluster import ClusterSim, make_sharded_pool_sim
+    from repro_torch.serving.traffic import (BULK_PREFILL, TenantSpec,
+                                             TrafficGenerator, constant,
+                                             drifting_mix_trace)
+
+    t_phase = time.perf_counter()
+    model = get_config("phi3-medium-14b")
+    cfg = VectorPoolConfig(num_vectors=db.shape[0], dim=db.shape[1],
+                           **CLUSTER_POOL)
+    t0 = time.perf_counter()
+    sim = ClusterSim(model, cfg, db, None, placement="disaggregated",
+                     policy="trinity", n_prefill=2, n_decode=2,
+                     decode_batch=8, vector_replicas=2, device=device,
+                     shard_index=shards, seed=0)
+    setup_s = time.perf_counter() - t0
+    reqs = drifting_mix_trace(CLUSTER_T_TRACE, CLUSTER_RPS,
+                              seed=CLUSTER_SEED).generate(CLUSTER_T_TRACE)
+    t_end = CLUSTER_T_TRACE + CLUSTER_TAIL
+    distance.reset_launches()
+    rec = drive_cluster(sim, reqs, cluster_faults(chaos, CLUSTER_T_TRACE),
+                        t_end)
+    launches = dict(distance.launches)
+    lanes = {k: dict(v) for k, v in distance.lane_launches.items()}
+    counts = check_cluster(sim, reqs, rec)
+    n_vec = sum(counts.values())
+    s = sim.metrics.summary(t_end)
+    check(s["cache_hits"] >= 1, "no repeat prompt hit the answer cache")
+    check(rec["injected"] == 4, f"faults applied: {rec['log']}")
+    pool = sim.vector_pool
+    ext = sum(rec["chunks"])
+    if device == "cuda":
+        by_g = lanes["distance_slot_gather"]
+        check(launches["distance_slot_gather"] == ext and ext > 0
+              and sum(by_g.values()) == ext and 1 not in by_g
+              and launches["distance_onehot"] == 0,
+              f"distance launches {launches} by G {by_g} for {ext} grouped "
+              "extends: not one lane launch a grouped extend")
+    copies = [c for c in pool.lane_copies if c[0] != "build"]
+    idle = np.asarray(rec["idle_polls"]) * 1e6
+    out = dict(
+        setup_s=setup_s, wall_s=rec["wall_s"], requests=len(reqs),
+        counts=counts, n_vec=n_vec, summary=s, launches=launches,
+        lanes=lanes, chunks=len(rec["chunks"]), extends=ext,
+        polls=len(rec["polls"]), idle_polls=len(idle),
+        idle_us=(float(np.median(idle)), float(idle.mean())) if len(idle)
+        else (0.0, 0.0), poll_wall_s=float(np.sum(rec["polls"])),
+        copies=copies, log=rec["log"], losses=rec["losses"],
+        rebalances=pool.metrics.rebalances,
+        deaths=pool.metrics.replica_deaths,
+        recovered=pool.metrics.cache_recovered,
+        bcast_bytes=pool.broadcast_bytes, broadcasts=pool.metrics.broadcasts,
+        replicas=[(r.rid, r.shard) for r in pool.replicas])
+    check(600 <= n_vec <= 1000, f"{n_vec} vector requests {counts}: the "
+          "phase is sized for 600-1,000")
+    del sim, pool
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # the fixture cluster with the autoscaler and a short fault list, on
+    # the card and on the CPU over the same shard graphs (built once on the
+    # CPU; the card's run takes a clone)
+    def fixture(dev, shard_index=None):
+        over = dict(sanitizer_enabled=True, rebalance_enabled=True,
+                    cache_backup_enabled=True)
+        fsim, _, _ = make_sharded_pool_sim(
+            model, pool_overrides=over, device=dev, shard_index=shard_index,
+            autoscaler=AutoscalerConfig(**FIXTURE_CONTROLLER))
+        # RAG chat with repeats beside bulk summarisation: the bulk
+        # prompts press prefill, and the controller takes a vector unit
+        gen = TrafficGenerator(constant(FIXTURE_RPS), [TenantSpec(
+            "rag_chat", prompt_len=(64, 512), max_new_tokens=(8, 16),
+            rag_interval=4, repeat_p=0.5, prompt_pool=3), BULK_PREFILL],
+            seed=CLUSTER_SEED)
+        return fsim, gen.generate(FIXTURE_T_TRACE)
+
+    f_cpu, f_reqs = fixture("cpu")
+    f_card, f_reqs2 = fixture(device, f_cpu.vector_pool.shards.clone(device))
+    runs = {}
+    for name, fsim, frq in (("card", f_card, f_reqs2), ("cpu", f_cpu, f_reqs)):
+        frec = drive_cluster(fsim, frq, cluster_faults(chaos, FIXTURE_T_TRACE),
+                             FIXTURE_T_END)
+        check_cluster(fsim, frq, frec)
+        probes = {r.rid: (r.t_completed, None if r.result_ids is None
+                          else np.asarray(r.result_ids).tolist())
+                  for r in fsim.vector_pool.metrics.completed}
+        runs[name] = dict(
+            summary=fsim.metrics.summary(FIXTURE_T_END),
+            signals=[dataclasses.asdict(x)
+                     for x in fsim.autoscaler.signals_log],
+            events=[dataclasses.asdict(e) for e in fsim.metrics.scale_events],
+            probes=probes, wall_s=frec["wall_s"], log=frec["log"])
+    a, b = runs["card"], runs["cpu"]
+    for key in ("summary", "signals", "events", "probes", "log"):
+        check(a[key] == b[key], f"fixture cluster: card and CPU {key} differ")
+    out.update(fixture=dict(
+        requests=len(f_reqs), vec=len(b["probes"]), wall_card=a["wall_s"],
+        wall_cpu=b["wall_s"], events=len(b["events"]),
+        signals=len(b["signals"]), hits=b["summary"]["cache_hits"]),
+        phase_s=time.perf_counter() - t_phase)
     return out
 
 
@@ -1250,7 +1526,8 @@ def main():
           f"{sh['G']}-lane launch a grouped extend, none single-lane | "
           f"{sh['wall_s']:.2f} s ({NUM_QUERIES / sh['wall_s']:.1f} probes per "
           f"wall-second), peak allocated {sh['peak_gib']:.2f} GiB | first "
-          f"256 probes + 64 inserts + 64 repeat lookups, card vs CPU: top-10 "
+          f"{sh['n_red']} probes + {sh['n_red'] // 4} inserts + "
+          f"{sh['n_red'] // 4} repeat lookups, card vs CPU: top-10 "
           f"lists equal {sh['red_same']:.4f}, recall@10 "
           f"{red['cuda']['recall']:.4f} vs {red['cpu']['recall']:.4f}, hits "
           f"{red['cuda']['hits']} vs {red['cpu']['hits']}, "
@@ -1262,6 +1539,43 @@ def main():
           f"{sh['oh_lanes']}, {sh['oh_wall']:.1f} s | {smi} | "
           f"{sh['phase_s']:.1f} s", flush=True)
 
+    # ---- phase 11: the Trinity cluster over phase 10's pool ---------------
+    cl = phase_cluster(db, sh.pop("cluster_shards"))
+    s11, fx = cl["summary"], cl["fixture"]
+    print(f"phase 11 cluster (rag-cluster-sift1m-shape): ClusterSim "
+          f"disaggregated, trinity policy, phi3-medium-14b at its published "
+          f"widths priced on V5E, 2 prefill + 2 decode instances (decode "
+          f"batch 8), the pool {N} x {D_IM} in {SHARDS} shards x 2 replicas "
+          f"with rebalancing, the cache backup and the sanitizer on (set-up "
+          f"{cl['setup_s']:.2f} s over a clone of phase 10's shards) | "
+          f"drifting-mix trace, {CLUSTER_T_TRACE} s at {CLUSTER_RPS} rps "
+          f"base (seed {CLUSTER_SEED}), run to {CLUSTER_T_TRACE + CLUSTER_TAIL}"
+          f" s: {cl['requests']} requests offered, each finished once | "
+          f"{cl['n_vec']} vector requests {cl['counts']}, each completed once"
+          f" or cancelled with its instance | faults "
+          f"{[(e['kind'], e['target']) for e in cl['log']]}: replica deaths "
+          f"{cl['deaths']}, shard loss (shard, entries held) {cl['losses']}: "
+          f"recovered {cl['recovered']}, lost 0 | cache hits "
+          f"{s11['cache_hits']} | rebalances {cl['rebalances']} | sanitizer "
+          f"clean | {cl['chunks']} grouped chunks of {cl['extends']} extends,"
+          f" B1 launches {cl['launches']['distance_slot_gather']} by G "
+          f"{cl['lanes']['distance_slot_gather']}: one lane launch a grouped "
+          f"extend, none single-lane | lane copies (reason, shard, bytes) "
+          f"{cl['copies']}, insert broadcasts {cl['broadcasts']} of "
+          f"{cl['bcast_bytes']} B in all | wall {cl['wall_s']:.2f} s, "
+          f"{cl['n_vec'] / cl['wall_s']:.1f} vector requests per wall-second,"
+          f" {cl['polls']} polls ({cl['poll_wall_s']:.2f} s), {cl['idle_polls']}"
+          f" idle: median {cl['idle_us'][0]:.1f} us, mean "
+          f"{cl['idle_us'][1]:.1f} us a poll | simulated (V5E model, not card "
+          f"times): ttft p50/p95 {s11['ttft_p50']:.5f}/{s11['ttft_p95']:.5f} "
+          f"s, tpot p50/p95 {s11['tpot_p50']:.6f}/{s11['tpot_p95']:.6f} s | "
+          f"fixture cluster (6000 x 64, 4 shards, the autoscaler, 4 faults), "
+          f"card vs CPU: summary, {fx['signals']} signal snapshots, "
+          f"{fx['events']} scale events and {fx['vec']} vector results "
+          f"equal, {fx['requests']} requests, cache hits {fx['hits']}, "
+          f"{fx['wall_card']:.2f} s vs {fx['wall_cpu']:.2f} s | {smi} | "
+          f"{cl['phase_s']:.1f} s", flush=True)
+
     # launches on each kernel's path: B1/B2 on the pool (phases 3, 4); B3's
     # total, its wgmma variant and B4 on phi3's serving path (phase 7); the
     # f32 variant on phase 8's float32 server; the hd-256 wgmma variant on
@@ -1269,8 +1583,10 @@ def main():
     # mma.sync variant on no served path, so its count is phase 6's
     launches.update({n: srv["launches"][n] for n in
                      ("flash_attention", "flash_wgmma", "decode_attention")})
-    # B1 and B2 add their lane launches on phase 10's megabatched path
+    # B1 and B2 add their lane launches on phase 10's megabatched path, and
+    # B1 its lane launches on phase 11's cluster
     launches["distance_slot_gather"] += sh["launches"]["distance_slot_gather"]
+    launches["distance_slot_gather"] += cl["launches"]["distance_slot_gather"]
     launches["distance_onehot"] += sh["oh_launches"]["distance_onehot"]
     launches.update(flash_fp32=cmp_["launches"]["flash_fp32"],
                     flash_wgmma256=gem["launches"]["flash_wgmma256"],
@@ -1313,6 +1629,7 @@ def main():
                 serve_pool={k: r["serve_pool"][k] for k in keys},
                 lane_launches=(sh["lanes"] if name == "distance_slot_gather"
                                else sh["oh_lanes"])[name],
+                cluster_lane_launches=cl["lanes"][name],
                 lanes=[{"G": c["G"], **{k: c[k] for k in keys}}
                        for c in r["lanes"]])
         if name in ("flash_mma", "flash_fp32"):

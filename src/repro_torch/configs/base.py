@@ -1,8 +1,9 @@
 """Model and vector-pool configurations for the PyTorch port.
 
-Copies of ``MoEConfig``, ``MLAConfig``, ``ModelConfig`` and
-``VectorPoolConfig``: the same fields with the same defaults, so one config
-drives both packages. ``tests/test_torch_isolation.py`` holds them equal.
+Copies of ``MoEConfig``, ``MLAConfig``, ``ModelConfig``, ``ShapeConfig``,
+``VectorPoolConfig`` and ``AutoscalerConfig``: the same fields with the
+same defaults, so one config drives both packages (``MeshConfig`` waits
+for ROADMAP item A14). ``tests/test_torch_isolation.py`` holds them equal.
 ``ModelConfig.param_count`` counts through the port's own
 ``models/model_zoo.py::analytic_param_count``.
 """
@@ -106,6 +107,36 @@ class ModelConfig:
         from repro_torch.models.model_zoo import analytic_param_count
 
         return analytic_param_count(self, active_only=True)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the assigned 4-shape set)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def shapes_for(cfg: ModelConfig):
+    """The applicable shape list for an architecture (skips documented in
+    DESIGN.md §Arch-applicability)."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.subquadratic:
+        out.append(LONG_500K)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -286,3 +317,61 @@ class VectorPoolConfig:
     peak_flops: float = 197e12
     hbm_bw: float = 819e9
     ici_bw: float = 50e9
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoscalerConfig:
+    """Closed-loop SLO autoscaler for the cluster sim (goodput control
+    plane). OFF by default: a :class:`~repro_torch.serving.cluster.ClusterSim`
+    only runs the controller when constructed with
+    ``autoscaler=AutoscalerConfig(...)`` — with the default (``None``)
+    nothing is scheduled, no seam changes behavior, and cluster runs are
+    bit-identical to a build without the subsystem. The controller is a
+    KEDA-style target tracker: each epoch it publishes a
+    ``ControlSignals`` snapshot from the rolling windows and applies at
+    most one scale action per pool under a fixed total-GPU budget, with
+    two-sided hysteresis + cooldown (the rebalancer's anti-thrash idiom)
+    and scale-down via safe drain (checkpoint-intact for vector
+    replicas, stop-admissions graceful drain for LLM instances)."""
+
+    # control epoch: one signals snapshot + at most one scale action per
+    # pool each epoch (simulated seconds)
+    epoch_s: float = 0.02
+    # rolling signal window for the windowed TTFT/ITL percentiles, probe
+    # deadline-miss rate and goodput rate (simulated seconds)
+    window_s: float = 0.25
+    # SLO targets defining goodput: a finished request is "good" when
+    # TTFT <= ttft_slo_s and (when it decoded) TPOT <= tpot_slo_s
+    ttft_slo_s: float = 0.4
+    tpot_slo_s: float = 0.05
+    # tolerated windowed probe deadline-miss rate before the vector pool
+    # reads as under-provisioned
+    probe_miss_budget: float = 0.1
+    # fixed total GPU budget in instance units (1 unit = one prefill or
+    # decode instance or one vector replica); 0 = freeze the allocation
+    # present when the controller attaches
+    gpu_budget: int = 0
+    # serving minimums — drains never take a pool below these (the
+    # vector floor is per shard, and cache-holding shards additionally
+    # keep cfg.cache_replication replicas)
+    min_prefill: int = 1
+    min_decode: int = 1
+    min_vector: int = 1
+    # target-tracking setpoints: queued work per active instance the
+    # controller tries to hold each pool at (vector replicas batch many
+    # probes per engine, so they carry a deeper target)
+    queue_target: float = 2.0
+    queue_target_vector: float = 4.0
+    # two-sided hysteresis band on normalized pool pressure
+    # (metric / target): above hot_factor => scale up; a donor must sit
+    # below cold_factor — both must hold, so oscillating load cannot
+    # thrash (the rebalancer's hot/cold idiom)
+    hot_factor: float = 1.0
+    cold_factor: float = 0.35
+    # minimum time between scale-ups / scale-downs of the same pool
+    cooldown_up_s: float = 0.05
+    cooldown_down_s: float = 0.1
+    # stage-aware priority guard: a vector-pool deficit may only take a
+    # decode unit while the windowed ITL p95 is within this factor of
+    # tpot_slo_s — a starved vector pool cannot push decode out of SLO
+    itl_protect_factor: float = 1.0

@@ -7,7 +7,9 @@
   trinity_pool        — shared vector-search pool (replicas, stragglers,
                         elasticity, failures, online inserts, the answer
                         cache) and its sharded, megabatched form
-  roofline_model      — the V5E-model extend prices of the simulated clock
+  roofline_model      — the V5E-model prices of the simulated clocks
+                        (extend steps, prefill, decode steps)
+  architectures       — §3.1 the three vector-search placements
 """
 from repro_torch.core.continuous_batching import ContinuousBatchingEngine  # noqa
 from repro_torch.core.scheduler import TwoQueueScheduler, VectorRequest  # noqa

@@ -760,6 +760,7 @@ class GroupEngine:
         self.n_max = 0
         self._free_lanes: List[int] = []
         self._lane_rows: dict = {}  # lane -> rows of its last full write
+        self.last_write_bytes = 0  # bytes of the last add_member's copy
 
     # ------------------------------------------------------ lane lifecycle
     def _grow_lanes(self, want: int):
@@ -806,7 +807,10 @@ class GroupEngine:
         if not self._free_lanes:
             self._grow_lanes(self.g_cap + 1)
         lane = self._free_lanes.pop()
-        self.write_lane_index(lane, index.db, index.graph)
+        # a new member's lane takes the whole index (its bytes are kept
+        # for the pool's record of lane copies)
+        self.last_write_bytes = self.write_lane_index(lane, index.db,
+                                                      index.graph)
         return GroupMember(self, lane, index, seed)
 
     def free_lane(self, lane: int):

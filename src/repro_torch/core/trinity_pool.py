@@ -30,16 +30,24 @@ of the kernel a step); ``device_merge_enabled`` folds the children's
 partial lists into per-parent buffers on the device, and
 ``double_buffer_enabled`` releases the next arrivals while the chunk runs.
 
+Workload-adaptive rebalancing (``cfg.rebalance_enabled``) moves a cold
+shard's replica onto a hot shard and migrates cache entries off a
+capacity-pressed shard; ``lose_shard`` kills a whole shard and wipes its
+cache segment, re-homing the entries from host-side peer copies under
+``cfg.cache_backup_enabled``. A moved or re-homed replica takes a fresh
+lane, copied whole from its shard's index (``lane_copies`` records each
+copy); every later write to a shard reaches its lanes through the rows
+the index recorded (``OnlineIndex.drain_touched``).
+
 The clock is simulated: a chunk of K extends advances a replica by
 K·``roofline_model.extend_time(cfg)`` (``extend_time_group`` in a
 megabatched cohort), the JAX package's V5E-model price, so completion
 times match it; a request converging at sub-step i is stamped
 ``t + (i+1)·T_ext``. These are model times, not card times.
 
-Not ported yet (ROADMAP): the runtime sanitizer (``cfg.sanitizer_enabled``
-raises, Queue A item 11); shard rebalancing, whole-shard loss and the
-cache backup (``cfg.rebalance_enabled``, ``lose_shard`` and
-``cfg.cache_backup_enabled`` raise, Queue A item A9b).
+``cfg.sanitizer_enabled`` wraps the pool's seams with the record-only
+invariant checks of ``serving/sanitizer.py``; with the knob off nothing is
+wrapped.
 """
 from __future__ import annotations
 
@@ -66,7 +74,7 @@ from repro_torch.kernels.ops import (finalize_partial_topk, fold_partial_topk,
 # CapacityError is raised at construction (frozen rows over budget) and at
 # cache growth (insert load pushing a replica past its modeled HBM)
 from repro_torch.vector.online import CapacityError, OnlineIndex  # noqa: F401
-from repro_torch.vector.shards import A9B, ShardedIndex
+from repro_torch.vector.shards import ShardedIndex
 
 
 @dataclasses.dataclass
@@ -87,13 +95,13 @@ class PoolMetrics:
     sub_searches: int = 0  # per-shard children dispatched
     merges: int = 0  # parent fan-outs merged to completion
     shard_reassignments: int = 0  # orphaned shards re-homed after a kill
-    # workload-adaptive rebalancing (ROADMAP A9b: stays 0 in the port)
-    rebalances: int = 0
-    migrated_entries: int = 0
+    # workload-adaptive rebalancing
+    rebalances: int = 0  # replicas moved cold shard → hot shard
+    migrated_entries: int = 0  # cache entries re-homed between shards
     drains: int = 0  # replicas retired by a planned scale-down
     # failure handling
     replica_deaths: int = 0  # kill_replica fail-stops
-    shard_losses: int = 0  # whole-shard losses (ROADMAP A9b)
+    shard_losses: int = 0  # whole-shard (replicas + cache segment) losses
     rescued: int = 0  # in-flight requests resumed from a death snapshot
     retries: int = 0  # from-scratch restarts after a replica death
     retries_exhausted: int = 0  # requests failed at the max_retries cap
@@ -101,8 +109,8 @@ class PoolMetrics:
     hedges_won: int = 0  # the twin finished first
     hedges_wasted: int = 0  # duplicate work cancelled/dropped post-winner
     probes_cancelled: int = 0  # requests cancelled by their upstream owner
-    cache_recovered: int = 0  # (ROADMAP A9b)
-    cache_lost: int = 0  # (ROADMAP A9b)
+    cache_recovered: int = 0  # lost cache entries re-homed from backup
+    cache_lost: int = 0  # cache entries lost with a dead shard (no backup)
     # recent per-shard child admission waits (bounded window, newest last)
     shard_waits: Dict[int, List[float]] = dataclasses.field(
         default_factory=dict)
@@ -208,10 +216,6 @@ class VectorPool:
                  min_replicas: int = 1, max_replicas: int = 8,
                  straggler_factor: float = 2.5, elastic: bool = False,
                  classes=None, seed: int = 0):
-        if cfg.sanitizer_enabled:
-            raise NotImplementedError(
-                "the runtime sanitizer is not ported yet (it lives in "
-                "serving/: ROADMAP Queue A item 11)")
         self.cfg = cfg
         self.device = resolve_device(device)
         # frozen corpus as a host numpy view (the JAX pool's ``db``; the
@@ -234,6 +238,11 @@ class VectorPool:
         self._pending_seq = 0  # deterministic tiebreak (id() varies by run)
         self._build(db, graph, replicas, policy, classes)
         self.peak_replicas = len(self.replicas)
+        # opt-in runtime invariant layer; None = nothing wrapped
+        self.sanitizer = None
+        if cfg.sanitizer_enabled:
+            from repro_torch.serving.sanitizer import attach
+            self.sanitizer = attach(self)
 
     # -------------------------------------------------- construction hooks
     def _build(self, db, graph, replicas: int, policy: str, classes):
@@ -541,8 +550,9 @@ class VectorPool:
             rep.in_flight[req.rid] = req
 
     def _maybe_rebalance(self, rep: _Replica, t: float):
-        """Workload-adaptive rebalancing hook (ROADMAP A9b: the pools
-        refuse ``cfg.rebalance_enabled``, so this stays the no-op)."""
+        """Workload-adaptive rebalancing hook, invoked between fused
+        chunks like preemption. No-op for monolithic pools (one shared
+        queue); the sharded pool overrides it."""
 
     def _maybe_preempt(self, rep: _Replica, t: float):
         """Between fused chunks: full engine + urgent queued work => evict
@@ -658,9 +668,22 @@ class ShardedVectorPool(VectorPool):
     ``distance_tasks_group`` launch over all lanes a step. With the knob off
     the pool runs the legacy serial per-replica path.
 
-    Not ported yet (ROADMAP A9b): ``cfg.rebalance_enabled`` (replica
-    reassignment and cache-entry migration), ``lose_shard`` and
-    ``cfg.cache_backup_enabled`` raise ``NotImplementedError``.
+    Workload-adaptive rebalancing (``cfg.rebalance_enabled``), between
+    fused chunks (``_maybe_rebalance``):
+
+      · **replica reassignment** — when one shard's per-replica load
+        clears ``rebalance_hot_factor``× the mean AND a donor sits below
+        ``rebalance_cold_factor``×, one cold replica is re-homed onto the
+        hot shard; the donor's children re-queue checkpoint-intact. With
+        the knob on, all replicas of a shard share ONE engine seed, so a
+        child's results are a pure function of (rid, qvec, shard).
+      · **cache-entry migration** — a shard whose live cache occupancy
+        crosses ``rebalance_migrate_watermark`` of its budget sheds its
+        oldest entries to the least-occupied shard
+        (``ShardedIndex.migrate_entries``), keeping gids and timestamps.
+
+    Both are paced by ``rebalance_cooldown_s``; with the knob off every
+    path is the static pool's.
     """
 
     MAX_SHARDS = 64  # child rid encoding: (parent_rid << 6) | shard
@@ -674,12 +697,6 @@ class ShardedVectorPool(VectorPool):
                  straggler_factor: float = 2.5, classes=None, seed: int = 0,
                  shard_index: Optional[ShardedIndex] = None,
                  exact_threshold: int = 20000):
-        if cfg.rebalance_enabled:
-            raise NotImplementedError(
-                f"rebalance_enabled=True: {A9B}")
-        if cfg.cache_backup_enabled:
-            raise NotImplementedError(
-                f"cache_backup_enabled=True: {A9B}")
         rps = replicas_per_shard or cfg.replicas_per_shard
         # a prebuilt partition (``shard_index``) is only safe to share
         # across pools for search-only workloads (inserts mutate shards)
@@ -742,21 +759,38 @@ class ShardedVectorPool(VectorPool):
             self._buf_free = list(range(P - 1, -1, -1))
         self.replicas: List[_Replica] = []
         self._next_rid = 0
+        # bytes written into lanes: by insert broadcasts (the touched rows)
+        # and by whole-lane copies, one (reason, shard, bytes) a new lane
+        self.broadcast_bytes = 0
+        self.lane_copies: List[tuple] = []
         for s in range(S):
             for _ in range(replicas_per_shard):
                 self._add_shard_replica(s)
         self._fanout: Dict[int, _Fanout] = {}  # parent rid → fan-out state
         self._insert_shard: Dict[int, int] = {}  # insert rid → owning shard
+        # workload-adaptive rebalancing state
         self._shard_load = [ShardLoad() for _ in range(S)]
+        self._last_move = -math.inf  # last replica reassignment
+        self._last_migrate = -math.inf  # last cache-entry migration
         # hedged dispatch: base child rid → outstanding twin rid
         self._hedged: Dict[int, int] = {}
-        # bytes written into lanes by insert broadcasts (megabatched)
-        self.broadcast_bytes = 0
+        # cache-entry backup (cfg.cache_backup_enabled): gid → (vec, born),
+        # host-side peer copies a whole-shard loss re-homes from
+        self._cache_backup: Dict[int, tuple] = {}
 
-    def _add_shard_replica(self, s: int) -> _Replica:
-        eng_seed = self._seed + self._next_rid
-        eng = self._group.add_member(self.shards.shards[s], eng_seed) \
-            if self._mega else None
+    def _add_shard_replica(self, s: int, reason: str = "build") -> _Replica:
+        # with rebalancing ON, every replica of a shard shares one engine
+        # seed: a child's results are a pure function of (rid, qvec,
+        # shard), so reassignment and kill re-homing are result-neutral.
+        # With the knob OFF, the static pool's seeds
+        eng_seed = self._seed + (s if self.cfg.rebalance_enabled
+                                 else self._next_rid)
+        eng = None
+        if self._mega:
+            eng = self._group.add_member(self.shards.shards[s], eng_seed)
+            # a fresh lane is a whole copy of the shard's index
+            self.lane_copies.append((reason, s,
+                                     self._group.last_write_bytes))
         rep = _Replica(self._next_rid, self.cfg, self.shards.shards[s],
                        eng_seed, engine=eng)
         rep.shard = s
@@ -842,9 +876,14 @@ class ShardedVectorPool(VectorPool):
                                                 t_now=t_now)
         for gone in evicted:
             self.cache_meta.pop(gone, None)
+            self._cache_backup.pop(gone, None)
             self.metrics.cache_evictions += 1
         if meta is not None:
             self.cache_meta[gid] = meta
+        if self.cfg.cache_backup_enabled:
+            # host-side peer copy: whole-shard loss re-homes from here
+            self._cache_backup[gid] = (np.array(vec, np.float32, copy=True),
+                                       float(t_now))
         self.metrics.inserts += 1
         self._trans_dirty.add(s)  # gid map mutated: device trans row stale
         self._broadcast_shard(s)
@@ -855,7 +894,7 @@ class ShardedVectorPool(VectorPool):
         a single kill must never leave the answer cache unservable."""
         want = max(self.cfg.cache_replication, 1)
         while len(self.shard_replicas(s)) < want:
-            self._add_shard_replica(s)
+            self._add_shard_replica(s, "replicate")
 
     def submit_insert(self, vec, meta=None, t_now: float = 0.0):
         """Insert ``vec`` into the owning (nearest-centroid) shard's cache
@@ -1408,7 +1447,7 @@ class ShardedVectorPool(VectorPool):
         if self._mega:
             self._group.free_lane(victim.engine.lane)
         if not self.shard_replicas(s):
-            self._add_shard_replica(s)
+            self._add_shard_replica(s, "rehome")
             self.metrics.shard_reassignments += 1
 
     def add_replica(self):
@@ -1417,7 +1456,7 @@ class ShardedVectorPool(VectorPool):
 
     def spawn_replica(self, shard: Optional[int] = None):
         assert shard is not None, "sharded pools spawn replicas per shard"
-        self._add_shard_replica(shard)
+        self._add_shard_replica(shard, "spawn")
 
     def shard_floor(self, s: int) -> int:
         """Serving minimum for shard ``s``: ≥ 1 replica always, and
@@ -1476,8 +1515,58 @@ class ShardedVectorPool(VectorPool):
         return True
 
     def lose_shard(self, s: int):
-        """Whole-shard failure (not ported yet)."""
-        raise NotImplementedError(f"lose_shard: {A9B}")
+        """Catastrophic whole-shard failure: every replica of shard ``s``
+        dies at once and the shard's answer-cache segment is wiped. The
+        shard is re-homed on a fresh replica at once (its frozen rows come
+        back from the partition), but its cache entries are LOST (counted
+        ``cache_lost``) unless ``cfg.cache_backup_enabled``: then every
+        lost entry is re-homed from its host-side peer copy onto the
+        least-occupied surviving shard (``cache_recovered``), keeping its
+        gid, answer metadata and insert timestamp."""
+        self.metrics.shard_losses += 1
+        victims = self.shard_replicas(s)
+        # loss time = the clock frontier (see kill_replica)
+        t = min((r.clock for r in self.replicas), default=0.0)
+        # snapshots AND queued checkpoints reference the wiped cache rows:
+        # a resume would score against the wrong vectors, so every rescue
+        # path restarts from scratch instead
+        for rep in victims:
+            rep.snapshots = {}
+        for req in self.schedulers[s].queued_requests():
+            if req.checkpoint is not None:
+                req.checkpoint = None
+                req.extends_done = 0
+        lost = self.shards.drop_shard_cache(s)
+        self._trans_dirty.add(s)
+        # kill by identity: kill_replica re-homes a fresh replica when the
+        # shard empties (a whole copy of the wiped index), and that
+        # replacement must survive
+        for rep in victims:
+            self.kill_replica(self.replicas.index(rep))
+        for gid in list(lost):
+            if not self.cfg.cache_backup_enabled \
+                    or gid not in self._cache_backup:
+                self.cache_meta.pop(gid, None)
+                self._cache_backup.pop(gid, None)
+                self.metrics.cache_lost += 1
+                lost.remove(gid)
+        if not lost:
+            return
+        # re-home the backed-up entries onto the least-occupied OTHER
+        # shard (a sole-shard pool re-homes in place)
+        cands = [d for d in range(self.shards.num_shards) if d != s] or [s]
+        dst = min(cands, key=lambda d: (self.shards.shards[d].cache_size, d))
+        vecs = np.stack([self._cache_backup[g][0] for g in lost])
+        born = [self._cache_backup[g][1] for g in lost]
+        evicted = self.shards.restore_entries(dst, lost, vecs, born, t_now=t)
+        self._trans_dirty.add(dst)
+        for gone in evicted:
+            self.cache_meta.pop(gone, None)
+            self._cache_backup.pop(gone, None)
+            self.metrics.cache_evictions += 1
+        self.metrics.cache_recovered += len(lost)
+        self._broadcast_shard(dst)
+        self._ensure_cache_replication(dst)
 
     # ------------------------------------------------------ load signals
     def shard_load_score(self, s: int, t: float) -> float:
@@ -1514,3 +1603,128 @@ class ShardedVectorPool(VectorPool):
                 "load_score": self.shard_load_score(s, t),
             })
         return out
+
+    # ------------------------------------------ workload-adaptive rebalance
+    def _maybe_rebalance(self, rep: _Replica, t: float):
+        """Between fused chunks: migrate cache entries off a
+        capacity-pressed shard, then move one replica cold → hot when the
+        load imbalance clears the hysteresis band. ``rep`` is the stepping
+        replica, never the donor. Cooldown-paced; a no-op with the knob
+        off or one shard."""
+        cfg = self.cfg
+        if not cfg.rebalance_enabled or self.shards.num_shards < 2:
+            return
+        if t - self._last_migrate >= cfg.rebalance_cooldown_s:
+            if self._maybe_migrate(t):
+                self._last_migrate = t
+        if t - self._last_move < cfg.rebalance_cooldown_s:
+            return
+        S = self.shards.num_shards
+        scores = [self.shard_load_score(s, t) for s in range(S)]
+        mean = sum(scores) / S
+        if mean <= 1e-12:
+            return
+        hot = min(range(S), key=lambda s: (-scores[s], s))
+        if scores[hot] < cfg.rebalance_hot_factor * mean:
+            return
+        donors = []
+        for s in range(S):
+            if s == hot or scores[s] > cfg.rebalance_cold_factor * mean:
+                continue
+            reps = self.shard_replicas(s)
+            movable = [r for r in reps if r is not rep]
+            # the donor keeps a serving path: ≥ 1 replica always, and
+            # ≥ cache_replication while it holds live cache entries
+            keep = max(1, cfg.cache_replication
+                       if self.shards.shards[s].cache_size > 0 else 1)
+            if len(reps) - 1 < keep or not movable:
+                continue
+            donors.append((scores[s], s))
+        if not donors:
+            return
+        _, cold = min(donors)
+        self._move_replica(cold, hot, t, exclude=rep)
+        self._last_move = t
+
+    def _move_replica(self, src: int, dst: int, t: float,
+                      exclude: Optional[_Replica] = None):
+        """Re-home one replica of shard ``src`` onto shard ``dst``. The
+        donor's in-flight children are checkpointed (one ``preempt``, on
+        the megabatched path an ``evict_slots_group`` over its lane) and
+        re-queued on shard ``src``'s scheduler checkpoint-intact; its lane
+        is freed and the replacement takes a fresh lane, a whole copy of
+        shard ``dst``'s index."""
+        cands = [r for r in self.shard_replicas(src) if r is not exclude]
+        donor = min(cands, key=lambda r: (len(r.in_flight), r.rid))
+        sched = self.schedulers[src]
+        if donor.in_flight:
+            pairs = donor.engine.preempt(list(donor.in_flight.keys()))
+            for rid, ckpt in pairs:
+                req = donor.in_flight.pop(rid)
+                sched.requeue_preempted(req, ckpt, t)
+                # a planned move is load balancing, not a deadline rescue:
+                # it does not burn the starvation cap (max_preemptions)
+                req.preemptions -= 1
+        self.replicas.remove(donor)
+        if self._mega:
+            self._group.free_lane(donor.engine.lane)
+        new = self._add_shard_replica(dst, "move")
+        new.clock = max(new.clock, donor.clock)
+        self.metrics.rebalances += 1
+
+    def _cache_entry_budget(self, s: int) -> float:
+        """Live-entry budget of shard ``s``'s cache segment: the tighter
+        of ``cache_max_entries`` and the row headroom under
+        ``replica_max_rows`` (inf when both are off)."""
+        budget = math.inf
+        if self.cfg.cache_max_entries > 0:
+            budget = float(self.cfg.cache_max_entries)
+        if self.cfg.replica_max_rows > 0:
+            budget = min(budget, float(self.cfg.replica_max_rows
+                                       - self.shards.shards[s].base_n))
+        return budget
+
+    def _maybe_migrate(self, t: float) -> bool:
+        """Shed the oldest cache entries of the most capacity-pressed
+        shard to the least-occupied one BEFORE the entry/row cap forces a
+        real eviction. Returns True when entries moved."""
+        cfg = self.cfg
+        S = self.shards.num_shards
+        occ = []
+        for s in range(S):
+            b = self._cache_entry_budget(s)
+            # b == 0 (frozen rows fill replica_max_rows): no cache entries
+            # fit at all, so no pressure to shed
+            occ.append(self.shards.shards[s].cache_size / b
+                       if math.isfinite(b) and b > 0 else 0.0)
+        donor = min(range(S), key=lambda s: (-occ[s], s))
+        if occ[donor] < cfg.rebalance_migrate_watermark:
+            return False
+        batch = min(cfg.rebalance_migrate_batch,
+                    self.shards.shards[donor].cache_size)
+        if batch <= 0:
+            return False
+        recips = [s for s in range(S) if s != donor
+                  and occ[s] < occ[donor]
+                  and (self.shards.shards[s].cache_size + batch
+                       <= cfg.rebalance_migrate_watermark
+                       * self._cache_entry_budget(s))]
+        if not recips:
+            return False
+        dst = min(recips, key=lambda s: (occ[s], s))
+        moved, evicted = self.shards.migrate_entries(donor, dst, batch,
+                                                     t_now=t)
+        self._trans_dirty.update((donor, dst))
+        for gone in evicted:
+            self.cache_meta.pop(gone, None)
+            self._cache_backup.pop(gone, None)
+            self.metrics.cache_evictions += 1
+        # the donor's rows changed even when nothing moved (extraction
+        # TTL-tombstones expired rows): its lanes must take them
+        self._broadcast_shard(donor)
+        if not moved:
+            return False
+        self.metrics.migrated_entries += len(moved)
+        self._broadcast_shard(dst)
+        self._ensure_cache_replication(dst)
+        return True

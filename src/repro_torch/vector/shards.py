@@ -33,9 +33,12 @@ large shards on the card passes the shard's row count to get each shard's
 exact kNN graph.
 Below 20000 rows a shard, both packages build the exact graph.
 
-Shard rebalancing (``migrate_entries``) and whole-shard loss
-(``drop_shard_cache``, ``restore_entries``) wait for ROADMAP Queue A item
-A9b; they raise ``NotImplementedError``.
+Shard rebalancing moves cache entries between shards with their global ids
+and insert timestamps (``migrate_entries``); a whole-shard loss wipes a
+shard's cache segment (``drop_shard_cache``) and its entries may be
+re-homed from peer copies (``restore_entries``). Adopted entries are wired
+to their exact nearest live cache rows, found on the host with numpy, so
+the wiring is the same whatever the index's device.
 """
 from __future__ import annotations
 
@@ -50,9 +53,6 @@ from repro_torch.device import resolve_device
 from repro_torch.vector.ivf import centroid_distances, kmeans
 from repro_torch.vector.online import OnlineIndex
 from repro_torch.vector.ref import exact_knn
-
-A9B = ("shard rebalancing and whole-shard loss are not ported yet: "
-       "ROADMAP Queue A item A9b")
 
 
 def balanced_partition(db: np.ndarray, num_shards: int, *, iters: int = 8,
@@ -181,10 +181,15 @@ class ShardedIndex:
     def clone(self, device=None) -> "ShardedIndex":
         """A fresh index over the same partition, routing centroids and
         shard graphs (no k-means, no graph build), its cache segments
-        empty, on ``device`` (default: this index's)."""
+        empty, on ``device`` (default: this index's). Methods wrapped on
+        this instance are not carried over."""
         if len(self.graphs) != self.num_shards:
             raise ValueError("clone needs the shard graphs (build_graphs)")
         new = copy.copy(self)
+        # methods wrapped on this instance (the sanitizer's seams, a
+        # caller's timers) act on this index: the clone keeps its own
+        for name in [k for k, v in vars(new).items() if callable(v)]:
+            del vars(new)[name]
         new.device = self.device if device is None else resolve_device(device)
         new.shards = [new._make_shard(s, g) for s, g in enumerate(self.graphs)]
         new._reset_ids()
@@ -243,14 +248,7 @@ class ShardedIndex:
         evicted_gids)."""
         shard = self.shards[s]
         local_row = shard.insert(vec, neighbor_local_ids, t_now=t_now)
-        evicted = []
-        for loc in shard.drain_evicted():
-            gmap = self._global_of[s]
-            if loc < len(gmap) and gmap[loc] >= 0:
-                gid = int(gmap[loc])
-                evicted.append(gid)
-                self._gid_loc.pop(gid, None)
-                gmap[loc] = -1
+        evicted = self._retire(s, shard.drain_evicted())
         gid = self._next_cache_gid
         self._next_cache_gid += 1
         self._ensure_map(s, local_row + 1)
@@ -258,20 +256,105 @@ class ShardedIndex:
         self._gid_loc[gid] = (s, local_row)
         return gid, evicted
 
+    def _retire(self, s: int, drained) -> List[int]:
+        """Retire the gids of shard ``s``'s drained local rows (evicted or
+        lost entries); returns them."""
+        out: List[int] = []
+        gmap = self._global_of[s]
+        for loc in drained:
+            if loc < len(gmap) and gmap[loc] >= 0:
+                gid = int(gmap[loc])
+                out.append(gid)
+                self._gid_loc.pop(gid, None)
+                gmap[loc] = -1
+        return out
+
+    def _adopt(self, dst: int, gids, vecs, born, t_now: float) -> List[int]:
+        """Adopt entries onto shard ``dst`` under the given gids, wired to
+        their exact nearest live cache rows there. Returns the gids the
+        recipient's own capacity/TTL pass evicted during adoption."""
+        recip = self.shards[dst]
+        vecs = np.asarray(vecs, np.float32)
+        nbr_lists = self._exact_cache_neighbors(recip, vecs)
+        new_rows = recip.adopt_entries(vecs, np.asarray(born, np.float64),
+                                       nbr_lists, t_now=t_now)
+        evicted = self._retire(dst, recip.drain_evicted())
+        self._ensure_map(dst, max(new_rows) + 1)
+        dst_map = self._global_of[dst]
+        for gid, r in zip(gids, new_rows):
+            dst_map[r] = int(gid)
+            self._gid_loc[int(gid)] = (dst, int(r))
+        return evicted
+
     # ------------------------------------------- rebalancing and shard loss
     def migrate_entries(self, src: int, dst: int, n: int,
                         t_now: float = 0.0):
-        """Cache-entry migration between shards (not ported yet)."""
-        raise NotImplementedError(A9B)
+        """Move up to ``n`` of shard ``src``'s oldest live cache entries to
+        shard ``dst`` (load/capacity rebalancing).
 
+        Global cache ids are STABLE across the move: a migrated gid keeps
+        serving with its original insert timestamp, so TTL staleness
+        guards are unaffected. The donor slots are tombstoned through the
+        eviction path; only entries genuinely retired by the move
+        (TTL-expired at extraction, or the recipient's own capacity
+        eviction during adoption) are reported back.
+
+        Returns ``(moved_gids, evicted_gids)``."""
+        assert src != dst
+        donor = self.shards[src]
+        rows, vecs, born = donor.extract_entries(n, t_now=t_now)
+        moved_gids: List[int] = []
+        src_map = self._global_of[src]
+        migrated = set()
+        for r in rows:
+            r = int(r)
+            moved_gids.append(int(src_map[r]))
+            src_map[r] = -1
+            migrated.add(r)
+        # everything else the extraction drained was a real (TTL) eviction
+        evicted = self._retire(src, [r for r in donor.drain_evicted()
+                                     if r not in migrated])
+        if not moved_gids:
+            return [], evicted
+        evicted += self._adopt(dst, moved_gids, vecs, born, t_now)
+        return moved_gids, evicted
+
+    # ------------------------------------------------------ shard loss
     def drop_shard_cache(self, s: int) -> List[int]:
-        """Whole-shard cache loss (not ported yet)."""
-        raise NotImplementedError(A9B)
+        """Whole-shard cache loss: tombstone every live cache entry of
+        shard ``s`` and retire their gids. The frozen corpus segment is
+        untouched; only the online-inserted entries die with the shard.
+        Returns the lost gids, for the pool to drop their answer metadata
+        or re-home them (:meth:`restore_entries`)."""
+        shard = self.shards[s]
+        shard.wipe_cache()
+        return self._retire(s, shard.drain_evicted())
 
-    def restore_entries(self, dst: int, gids, vecs, born,
+    def restore_entries(self, dst: int, gids: Sequence[int],
+                        vecs: np.ndarray, born: Sequence[float],
                         t_now: float = 0.0) -> List[int]:
-        """Re-homing of lost cache entries (not ported yet)."""
-        raise NotImplementedError(A9B)
+        """Re-home lost cache entries onto shard ``dst`` with their
+        ORIGINAL gids and insert timestamps (recovery from peer copies).
+        Returns the gids the recipient's own capacity/TTL pass evicted
+        during adoption."""
+        return self._adopt(dst, gids, vecs, born, t_now)
+
+    @staticmethod
+    def _exact_cache_neighbors(recip: OnlineIndex, vecs: np.ndarray):
+        """Exact nearest LIVE cache rows of ``recip`` per adopted vector
+        (candidate lists for adoption; None when the recipient's cache is
+        empty — random long edges alone wire the first arrivals). The
+        live rows are copied to the host and ranked by numpy."""
+        live = np.flatnonzero(recip._live[:recip.cache_rows])
+        if len(live) == 0:
+            return None
+        cand_rows = recip.base_n + live
+        cand = recip.db[torch.as_tensor(cand_rows, device=recip.device)]
+        k = min(max(recip.degree - recip.long_edges, 1), len(live))
+        ids_l, _ = exact_knn(cand.cpu().numpy(),
+                             np.asarray(vecs, np.float32), k,
+                             metric=recip.metric, device="cpu")
+        return [cand_rows[row].tolist() for row in ids_l]
 
     @property
     def cache_size(self) -> int:

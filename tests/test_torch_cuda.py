@@ -789,3 +789,164 @@ def test_sharded_pool_lane_stack_grows_on_card(cuda):
         assert x.t_completed == y.t_completed
         if x.result_ids is not None:
             np.testing.assert_array_equal(x.result_ids, y.result_ids)
+
+
+# ---------------------------------------------------------------------------
+# shard loss, rebalancing and the cluster on the card
+# ---------------------------------------------------------------------------
+
+
+def _lanes_hold_shards(pool):
+    g = pool._group
+    for rep in pool.replicas:
+        sh = pool.shards.shards[rep.shard]
+        n = sh.db.shape[0]
+        assert torch.equal(g.dbs[rep.engine.lane, :n], sh.db)
+        assert torch.equal(g.graphs[rep.engine.lane, :n], sh.graph)
+
+
+@pytest.mark.parametrize("backup", [True, False])
+def test_lose_shard_on_card_matches_cpu(cuda, backup):
+    """``lose_shard`` on the megabatched pool: the lost shard's lanes are
+    freed and it is re-homed on a fresh lane; with the backup its entries
+    land on a surviving shard, whose lanes take the rows. Every lane holds
+    its shard's index afterwards, and the run equals the CPU's."""
+    from repro_torch.core import VectorRequest
+
+    db, queries = _small_corpus()
+    inserts = np.random.default_rng(9).normal(size=(8, 16)).astype(
+        np.float32) * 3
+    knobs = dict(rebalance_enabled=True, cache_backup_enabled=backup,
+                 sanitizer_enabled=True)
+    pools = {}
+    for dev in ("cpu", "cuda"):
+        pool = _drive_sharded(_sharded_pool(dev, db, **knobs), queries,
+                              inserts)
+        s = pool.shards.cache_shards()[0]
+        held = pool.shards.shards[s].cache_size
+        pool.lose_shard(s)
+        m = pool.metrics
+        assert (m.cache_recovered, m.cache_lost) == \
+            ((held, 0) if backup else (0, held))
+        _lanes_hold_shards(pool)
+        t = max(r.clock for r in pool.replicas)
+        for j in range(8):
+            pool.submit(VectorRequest(200 + j, "cache_lookup", inserts[j],
+                                      t, t + 1.0))
+        pool.run_until(t + 1.0)
+        _lanes_hold_shards(pool)
+        pool.sanitizer.assert_clean()
+        pools[dev] = pool
+    torch.cuda.synchronize()
+    a, b = pools["cpu"].metrics.completed, pools["cuda"].metrics.completed
+    assert [r.rid for r in a] == [r.rid for r in b]
+    for x, y in zip(a, b):
+        assert x.t_completed == y.t_completed
+        if x.result_ids is not None:
+            np.testing.assert_array_equal(x.result_ids, y.result_ids)
+    assert pools["cpu"].cache_meta == pools["cuda"].cache_meta
+
+
+def test_move_replica_on_card_matches_cpu(cuda):
+    """``_move_replica`` with the donor's children in flight: they are
+    evicted off its lane and resume on the shard's other replica; the
+    replacement lane holds the new shard's index whole."""
+    from repro_torch.core import VectorRequest
+
+    db, queries = _small_corpus()
+    pools = {}
+    for dev in ("cpu", "cuda"):
+        pool = _sharded_pool(dev, db, rebalance_enabled=True,
+                             rebalance_hot_factor=1e18, nprobe_shards=1)
+        for i in range(24):  # a burst at one shard: slots and a queue
+            pool.submit(VectorRequest(
+                i, "prefill", queries[0] + np.float32(1e-3 * (i % 7)), 0.0,
+                1.0))
+
+        def donor_load():
+            low = {}
+            for r in pool.replicas:
+                low[r.shard] = min(low.get(r.shard, 1 << 30),
+                                   len(r.in_flight))
+            return max(low.items(), key=lambda kv: kv[1])
+
+        t = 0.0
+        while donor_load()[1] == 0:
+            t += 2e-5
+            assert t < 0.05
+            pool.run_until(t)
+        src, n = donor_load()
+        dst = (src + 1) % 4
+        pool._move_replica(src, dst, t)
+        moved = [c for c in pool.lane_copies if c[0] == "move"]
+        assert len(moved) == 1 and moved[0][1] == dst and moved[0][2] > 0
+        assert len(pool.shard_replicas(src)) == 1
+        assert 0 < sum(r.checkpoint is not None for r in
+                       pool.schedulers[src].queued_requests()) <= n
+        _lanes_hold_shards(pool)
+        pool.run_until(1.0)
+        pools[dev] = pool
+    torch.cuda.synchronize()
+    a, b = pools["cpu"].metrics.completed, pools["cuda"].metrics.completed
+    assert sorted(r.rid for r in b) == list(range(24))
+    assert [(r.rid, r.t_completed) for r in a] == \
+        [(r.rid, r.t_completed) for r in b]
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.result_ids, y.result_ids)
+    assert pools["cuda"].metrics.resumes == pools["cpu"].metrics.resumes > 0
+
+
+def test_fixture_cluster_on_card_matches_cpu(cuda):
+    """``make_sharded_pool_sim`` at its fixture size with the autoscaler,
+    rebalancing, the cache backup and the sanitizer, and a fault of each
+    pool kind and a decode kill: the card's run equals the CPU's over the
+    same shard graphs (summary, signals, scale events, every vector
+    request's time and ids)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import AutoscalerConfig
+    from repro_torch.serving.chaos import ChaosInjector, FaultEvent
+    from repro_torch.serving.cluster import make_sharded_pool_sim
+    from repro_torch.serving.traffic import (BULK_PREFILL, TenantSpec,
+                                             TrafficGenerator, constant)
+
+    over = dict(sanitizer_enabled=True, rebalance_enabled=True,
+                cache_backup_enabled=True)
+    ctl = AutoscalerConfig(gpu_budget=12, ttft_slo_s=0.15, tpot_slo_s=0.008,
+                           window_s=0.3, cold_factor=0.5, cooldown_up_s=0.06,
+                           cooldown_down_s=0.12, itl_protect_factor=1.2)
+    faults = [FaultEvent(0.075, "kill_replica", duration=0.025),
+              FaultEvent(0.11, "straggle_replica", factor=8.0,
+                         duration=0.025),
+              FaultEvent(0.175, "lose_shard", duration=0.025),
+              FaultEvent(0.2, "kill_decode", duration=1e3)]
+    model = get_config("phi3-medium-14b")
+    runs, index = {}, None
+    for dev in ("cpu", "cuda"):
+        sim, _, _ = make_sharded_pool_sim(
+            model, pool_overrides=over, device=dev, autoscaler=ctl,
+            shard_index=None if index is None else index.clone(dev))
+        if index is None:
+            index = sim.vector_pool.shards.clone("cpu")
+        reqs = TrafficGenerator(constant(80.0), [TenantSpec(
+            "rag_chat", prompt_len=(64, 512), max_new_tokens=(8, 16),
+            rag_interval=4, repeat_p=0.5, prompt_pool=3), BULK_PREFILL],
+            seed=0).generate(0.25)
+        ChaosInjector(faults, seed=0).arm(sim)
+        for r in reqs:
+            sim.arrive(r)
+        sim.run(0.8)
+        assert sorted(r.rid for r in sim.metrics.finished) == \
+            [r.rid for r in reqs]
+        sim.vector_pool.sanitizer.assert_clean()
+        runs[dev] = (sim.metrics.summary(0.8),
+                     [dataclasses.asdict(s) for s in
+                      sim.autoscaler.signals_log],
+                     [dataclasses.asdict(e) for e in
+                      sim.metrics.scale_events],
+                     [(r.rid, r.t_completed, None if r.result_ids is None
+                       else np.asarray(r.result_ids).tolist())
+                      for r in sim.vector_pool.metrics.completed])
+    assert runs["cuda"] == runs["cpu"]
+    assert runs["cpu"][2]  # the controller acted

@@ -79,7 +79,9 @@ def test_cuda_requested_without_card_raises(monkeypatch):
     from repro_torch.vector.ref import exact_knn
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.serve import RealServer
+    from repro_torch.launch.serve_rag_cluster import main as cluster_cli
     from repro_torch.models import model_zoo
+    from repro_torch.serving.cluster import ClusterSim, make_sharded_pool_sim
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = TConfig(num_vectors=64, dim=8, graph_degree=4, max_requests=2,
@@ -107,7 +109,12 @@ def test_cuda_requested_without_card_raises(monkeypatch):
                  get_smoke_config("gemma-7b"), 1, 4),
              lambda: convert.lm_params_from_numpy(
                  get_smoke_config("gemma-7b"), {}),
-             lambda: RealServer(get_smoke_config("gemma-7b"), cfg)]
+             lambda: RealServer(get_smoke_config("gemma-7b"), cfg),
+             lambda: ClusterSim(get_smoke_config("phi3-medium-14b"), cfg, db,
+                                graph),
+             lambda: make_sharded_pool_sim(num_vectors=600,
+                                           replica_max_rows=300),
+             lambda: cluster_cli(["--requests", "1"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -129,7 +136,8 @@ def test_vector_pool_config_equal_to_jax():
     assert TConfig.__dataclass_params__.frozen
 
 
-@pytest.mark.parametrize("name", ["MoEConfig", "MLAConfig", "ModelConfig"])
+@pytest.mark.parametrize("name", ["MoEConfig", "MLAConfig", "ModelConfig",
+                                  "ShapeConfig", "AutoscalerConfig"])
 def test_model_config_classes_equal_to_jax(name):
     jf = [(f.name, f.type, f.default) for f in
           dataclasses.fields(getattr(jbase, name))]

@@ -153,15 +153,17 @@ def test_cancel_drain_and_elastic_match_jax(data):
 
 
 def test_unported_features_raise(data):
-    """The runtime sanitizer (ROADMAP item 11) and the sharded pool's
-    rebalancing, shard loss and cache backup (item A9b) raise; the answer
-    cache and online inserts, ported since, work."""
+    """Once raising, now ported: the runtime sanitizer (ROADMAP item 11)
+    wraps the pool's seams (with the knob off nothing is wrapped), and the
+    sharded pool takes rebalancing and the cache backup and loses a shard
+    (item A9b); the answer cache and online inserts work as before."""
     db, graph, queries = data
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tcore.VectorPool(TConfig(**CFG, sanitizer_enabled=True), db, graph,
-                         device="cpu")
+    san = tcore.VectorPool(TConfig(**CFG, sanitizer_enabled=True), db, graph,
+                           device="cpu")
+    assert san.sanitizer is not None and "run_until" in vars(san)
     pool = tcore.VectorPool(TConfig(**CFG, semantic_cache_enabled=True),
                             db, graph, device="cpu")
+    assert pool.sanitizer is None and "run_until" not in vars(pool)
     row = pool.submit_insert(queries[0], meta={"tokens": 1})
     assert row == len(db) and pool.cache_size == 1
     assert pool.submit_insert(queries[1]) is None  # rides the scheduler
@@ -169,14 +171,19 @@ def test_unported_features_raise(data):
     assert pool.cache_size == 2 and pool.metrics.inserts == 2
     assert pool.meta_at(row, 1.0) == {"tokens": 1}
     sharded = dict(CFG, num_shards=2, semantic_cache_enabled=True)
-    for kw in (dict(rebalance_enabled=True),
-               dict(cache_backup_enabled=True)):
-        with pytest.raises(NotImplementedError, match="A9b"):
-            tcore.ShardedVectorPool(TConfig(**sharded, **kw), db,
-                                    device="cpu")
-    spool = tcore.ShardedVectorPool(TConfig(**sharded), db, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9b"):
-        spool.lose_shard(0)
+    spool = tcore.ShardedVectorPool(
+        TConfig(**sharded, rebalance_enabled=True, cache_backup_enabled=True,
+                sanitizer_enabled=True), db, device="cpu")
+    for i in range(3):
+        spool.submit_insert(queries[i], meta={"tokens": i}, t_now=0.0)
+    spool.run_until(1.0)
+    s = spool.shards.cache_shards()[0]
+    n = spool.shards.shards[s].cache_size
+    spool.lose_shard(s)
+    assert spool.metrics.shard_losses == 1
+    assert spool.metrics.cache_recovered == n and spool.cache_size == 3
+    spool.run_until(2.0)
+    spool.sanitizer.assert_clean()
 
 
 def test_replicas_share_one_index(data):

@@ -7,8 +7,8 @@ legacy arm and the megabatched arm against the JAX megabatch arm; the
 equalities are those of ``test_torch_sharded_pool.py``.
 
 The JAX package's hedging and kill scenarios turn on ``rebalance_enabled``
-to share one engine seed among a shard's replicas; rebalancing is not
-ported (ROADMAP A9b), so here both packages run them with it off."""
+to share one engine seed among a shard's replicas; here both packages run
+them with the knob on and, as a second case, off."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -60,17 +60,23 @@ def _kill_busiest(pool, t):
     pool.kill_replica(victim)
 
 
+KILLS = [(True, 0.0, 0), (False, 0.0, 0), (False, 1.0, 1)]
+KILL_IDS = ["rescue", "restart", "backoff-cap"]
+
+
 @pytest.mark.parametrize("arm", TWO_ARMS)
-@pytest.mark.parametrize("rescue,backoff,retries",
-                         [(True, 0.0, 0), (False, 0.0, 0), (False, 1.0, 1)],
-                         ids=["rescue", "restart", "backoff-cap"])
-def test_kill_mid_chunk_matches_jax(setup, arm, rescue, backoff, retries):
+@pytest.mark.parametrize(
+    "rescue,backoff,retries,rebalance",
+    [k + (False,) for k in KILLS] + [k + (True,) for k in KILLS],
+    ids=KILL_IDS + [i + "+rebalance" for i in KILL_IDS])
+def test_kill_mid_chunk_matches_jax(setup, arm, rescue, backoff, retries,
+                                    rebalance):
     """A replica dies between grouped chunks with children in flight: its
     lane is freed, its children resume (rescue) or restart, an orphaned
     shard is re-homed; a second kill exhausts the retry cap."""
     _, queries = setup
     kw = dict(rescue_enabled=rescue, retry_backoff_ms=backoff,
-              max_retries=retries)
+              max_retries=retries, rebalance_enabled=rebalance)
     jp, tp = _pools(setup, arm, replicas_per_shard=2, **kw)
     chaos = {16: _kill_busiest, 28: _kill_busiest}
     _drive(jp, jsched, queries, n=32, gap=2e-7, chaos=chaos)
@@ -91,13 +97,16 @@ def test_kill_sole_replica_reassigns_shard(setup):
     _assert_same(jp, tp)
 
 
-@pytest.mark.parametrize("arm", TWO_ARMS)
-def test_hedging_matches_jax(setup, arm):
+@pytest.mark.parametrize(
+    "arm,rebalance",
+    [(a, False) for a in TWO_ARMS] + [(a, True) for a in TWO_ARMS],
+    ids=list(TWO_ARMS) + [a + "+rebalance" for a in TWO_ARMS])
+def test_hedging_matches_jax(setup, arm, rebalance):
     """A hard straggler triggers hedged twins; the winner is kept and the
     loser cancelled or dropped, each shard folded exactly once."""
     _, queries = setup
     jp, tp = _pools(setup, arm, replicas_per_shard=2, hedge_enabled=True,
-                    hedge_factor=4.0)
+                    hedge_factor=4.0, rebalance_enabled=rebalance)
     for pool in (jp, tp):
         pool.set_slowdown(0, 200.0)
     _drive(jp, jsched, queries, n=32)

@@ -52,7 +52,9 @@ COUNTERS = ("extend_steps", "tasks_emitted", "tasks_capacity", "preemptions",
             "broadcasts", "sub_searches", "merges", "shard_reassignments",
             "drains", "replica_deaths", "rescued", "retries",
             "retries_exhausted", "hedges", "hedges_won", "hedges_wasted",
-            "probes_cancelled", "shard_waits")
+            "probes_cancelled", "shard_waits", "rebalances",
+            "migrated_entries", "shard_losses", "cache_recovered",
+            "cache_lost")
 
 
 @pytest.fixture(scope="module")
@@ -298,14 +300,26 @@ def test_checkpoints_are_shard_portable_across_lanes(setup):
 
 
 def test_unported_knobs_raise_naming_a9b(setup):
-    db, _ = setup
-    for kw in (dict(rebalance_enabled=True), dict(cache_backup_enabled=True)):
-        _, tc = _cfgs("mega+merge+dbuf", **kw)
-        with pytest.raises(NotImplementedError, match="A9b"):
-            ttp.ShardedVectorPool(tc, db, device="cpu")
-    _, tp = _pools(setup, "legacy")
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tp.lose_shard(0)
-    _, tc = _cfgs("legacy", sanitizer_enabled=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttp.ShardedVectorPool(tc, db, device="cpu")
+    """Once raising (ROADMAP A9b and item 11), now ported: the pool takes
+    ``rebalance_enabled``, ``cache_backup_enabled`` and
+    ``sanitizer_enabled``, and ``lose_shard`` runs; each equals the JAX
+    package's on a stream with inserts and lookups around the loss."""
+    kw = dict(rebalance_enabled=True, cache_backup_enabled=True,
+              sanitizer_enabled=True, replicas_per_shard=2)
+    for arm in ("legacy", "mega+merge+dbuf"):
+        jp, tp = _pools(setup, arm, **kw)
+        assert tp.sanitizer is not None
+        for mod, pool in ((jsched, jp), (tsched, tp)):
+            _drive(pool, mod, setup[1], n=24, insert_every=4)
+            pool.lose_shard(pool.shards.cache_shards()[0])
+            t = pool.replicas[0].clock
+            for i, gid in enumerate(sorted(pool.cache_meta)):
+                loc = pool.shards._gid_loc[gid]
+                q = pool.shards.shards[loc[0]].db[loc[1]]
+                pool.submit(mod.VectorRequest(2000 + i, "cache_lookup",
+                                              np.asarray(q), t, t + 1.0))
+            pool.run_until(t + 5.0)
+        assert tp.metrics.shard_losses == 1 and tp.metrics.cache_lost == 0
+        assert tp.metrics.cache_recovered > 0
+        tp.sanitizer.assert_clean()
+        _assert_same(jp, tp)

@@ -136,14 +136,74 @@ def test_sharded_index_shards_and_ids_match_jax(setup):
 
 
 def test_rebalancing_and_shard_loss_raise_naming_a9b(setup):
+    """Once raising (ROADMAP A9b), now ported: ``migrate_entries`` moves a
+    shard's oldest entries with their gids and birth times (TTL-expired
+    rows retired, not moved), ``drop_shard_cache`` loses a shard's cache,
+    ``restore_entries`` re-homes the lost gids; the id maps, rows, graphs
+    and the returned gid lists equal the JAX package's after each."""
+    db, _ = setup
+    kw = dict(num_shards=3, degree=8, cache_capacity=16, seed=0, ttl=40.0)
+    j = jshards.ShardedIndex(db[:900], **kw)
+    t = tshards.ShardedIndex(db[:900], device="cpu", **kw)
+    rng = np.random.default_rng(4)
+    vecs = []
+    for i in range(24):
+        v = (db[11] + rng.normal(0, 0.05, 32)).astype(np.float32) if i % 3 \
+            else rng.normal(size=32).astype(np.float32)
+        vecs.append(v)
+        s = j.owning_shard(v)
+        assert t.insert_local(s, v, None, t_now=float(i)) == \
+            j.insert_local(s, v, None, t_now=float(i))
+
+    def same():
+        assert t._gid_loc == j._gid_loc
+        assert t._next_cache_gid == j._next_cache_gid
+        for s in range(3):
+            np.testing.assert_array_equal(t.global_map(s), j.global_map(s))
+            a, b = t.shards[s], j.shards[s]
+            np.testing.assert_array_equal(a.db.numpy(), np.asarray(b.db))
+            np.testing.assert_array_equal(a.graph.numpy(),
+                                          np.asarray(b.graph))
+            assert a.cache_size == b.cache_size
+        for gid in range(900, 930):
+            assert t.born_at(gid) == j.born_at(gid)
+
+    src = max(range(3), key=lambda s: t.shards[s].cache_size)
+    dst = (src + 1) % 3
+    for n, t_now in ((4, 30.0), (3, 50.0), (0, 50.0)):
+        out = t.migrate_entries(src, dst, n, t_now=t_now)
+        assert out == j.migrate_entries(src, dst, n, t_now=t_now)
+        same()
+    assert t.shards[dst].cache_size > 0
+    lost = t.drop_shard_cache(dst)
+    assert lost == j.drop_shard_cache(dst) and lost
+    same()
+    back = np.stack([vecs[g - 900] for g in lost])
+    born = [float(g - 900) for g in lost]
+    other = 3 - src - dst
+    assert t.restore_entries(other, lost, back, born, t_now=55.0) == \
+        j.restore_entries(other, lost, back, born, t_now=55.0)
+    same()
+    # the rows each step wrote reach the lanes through drain_touched
+    assert t.shards[other].drain_touched()
+
+
+def test_clone_leaves_instance_wrapped_methods_behind(setup):
+    """A method wrapped on an index instance (the sanitizer wraps
+    ``insert_local`` and the migration seams) acts on that index: a clone
+    calls its own, so inserts into the clone never reach the original."""
     db, _ = setup
     t = tshards.ShardedIndex(db[:600], num_shards=2, degree=8,
                              cache_capacity=16, device="cpu")
-    for call in (lambda: t.migrate_entries(0, 1, 2),
-                 lambda: t.drop_shard_cache(0),
-                 lambda: t.restore_entries(0, [1], db[:1], [0.0])):
-        with pytest.raises(NotImplementedError, match="A9b"):
-            call()
+    calls = []
+    inner = t.insert_local
+    t.insert_local = lambda *a, **kw: calls.append(a) or inner(*a, **kw)
+    c = t.clone()
+    assert "insert_local" not in vars(c)
+    c.insert_local(0, db[0], None)
+    assert not calls and t.cache_size == 0 and c.cache_size == 1
+    t.insert_local(1, db[1], None)
+    assert len(calls) == 1 and t.cache_size == 1 and c.cache_size == 1
 
 
 # ---------------------------------------------------------------------------
