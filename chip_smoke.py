@@ -38,10 +38,11 @@ line is printed only when every phase passed):
     bf16 and f32; gemma-7b's 16-over-16 heads at hd=256, S in {512, 2048},
     and once through views of a fused projection whose row stride TMA
     cannot take; 16-over-16 heads at hd=32, S=2048, contiguous and through
-    such a view), each with the B3 variant it ran (flash_wgmma,
-    flash_wgmma256, flash_mma or flash_fp32), and decode (B=4, S_max=544,
-    cur_len in {0, 271, 543}, garbage and NaN past cur_len; gemma-7b's
-    16/16 heads at hd=256, cur_len 543);
+    such a view; deepseek-moe-16b's 16-over-16 heads at hd=128, S=512,
+    bf16), each with the B3 variant it ran (flash_wgmma, flash_wgmma256,
+    flash_mma or flash_fp32), and decode (B=4, S_max=544, cur_len in {0,
+    271, 543}, garbage and NaN past cur_len; gemma-7b's 16/16 heads at
+    hd=256 and deepseek-moe-16b's 16/16 at hd=128, cur_len 543);
     per-launch device time, the plain version's time, the time of torch's
     scaled_dot_product_attention on the same inputs (a yardstick only: the
     port never calls it) and the bound (bytes, operations or exps, each
@@ -89,6 +90,27 @@ line is printed only when every phase passed):
     64 in 4 shards) with the autoscaler and the same kinds of faults, on
     the card and on the CPU: equal summaries, signals, scale events and
     vector results
+ 12 the serving path on deepseek-moe-16b at its published size (MoE: 28
+    layers, d_model 2048, 16/16 heads at hd 128, 64 routed experts of 1408
+    top-6 and 2 shared, bf16, 16.88e9 parameters, random weights from seed
+    0), phase 7's pool and traffic: every logit finite, all 28 prefill
+    launches on flash_wgmma, B4 launched 28 x 544 times, the (token,
+    expert) pairs capacity drops at prefill, the kernels of a decode step
+    (profiler), peak memory
+ 13 the same on deepseek-v3-671b at its published widths cut to depth 1
+    (MLA, 256 routed experts top-8 and 1 shared, the MTP block made but
+    not run, 25.0e9 parameters: two layers would not fit the card in
+    bf16): every logit finite, no B3/B4 launch (MLA is torch ops); then
+    MLA's prefill attention at its widths (the port's torch ops) timed
+    beside SDPA on the same inputs
+ 14 the DeepSeek family on the card and on the CPU through RealServer:
+    deepseek-moe-16b's widths cut to 2 layers, then deepseek-v3's smoke
+    config, float32, one set of weights each (equal tokens, close logits);
+    one deepseek-v3 MLA layer at its published widths, forward and 8
+    decode steps
+ 15 CAGRA's per-request lockstep search (search_batch, A4) on phase 3's
+    index and queries at the pool's top_m / parents_per_step: recall@10,
+    extends and the iterations the batch held, beside phase 3's pool
 
 The pool's and the cluster's clocks are simulated and priced by the JAX
 package's V5E model; phase 11 prints its simulated TTFT and TPOT labelled
@@ -564,6 +586,7 @@ def phase_attention():
     flash_cases += [(4, 2048, 16, 16, 32, torch.bfloat16, view)
                     for view in (False, True)]
     flash_cases.append((4, 512, 14, 2, 64, torch.float32, False))
+    flash_cases.append((4, 512, 16, 16, 128, torch.bfloat16, False))  # deepseek-moe-16b
     for i, (B, S, H, Hkv, hd, dt, view) in enumerate(flash_cases):
         q, k, v = prefill_inputs(B, S, H, Hkv, hd, dt, view, 3 * i)
         label = (B, S, H, Hkv, hd, dt) + (("view",) if view else ())
@@ -611,11 +634,13 @@ def phase_attention():
         del q, k, v, out, again, want
     # ---- B4: decode attention over the serving caches (S_max = 512 + 32):
     # phi3's 40/10 heads at hd 128 (bf16 and f32, cur_len 0, 271, 543),
-    # then gemma-7b's 16/16 at hd 256 (bf16, the longest step)
+    # then gemma-7b's 16/16 at hd 256 and deepseek-moe-16b's 16/16 at hd 128
+    # (bf16, the longest step)
     hold = 1_000_000_000  # ~0.5 s: covers the host's enqueue of 200 replays
     decode_cases = [((4, 544, 40, 10, 128), dt, (0, 271, 543))
                     for dt in (torch.bfloat16, torch.float32)]
     decode_cases.append(((4, 544, 16, 16, 256), torch.bfloat16, (543,)))
+    decode_cases.append(((4, 544, 16, 16, 128), torch.bfloat16, (543,)))  # deepseek-moe-16b
     for j, ((B, S, H, Hkv, hd), dt, curs) in enumerate(decode_cases):
         q = randn((B, H, hd), 100 + j, dt)
         k = randn((B, S, Hkv, hd), 110 + j, dt)
@@ -681,10 +706,44 @@ def phase_attention():
     return res
 
 
-def phase_serve(arch, variant):
-    """Phases 7 and 9: RealServer at ``arch``'s full width on the card, 4
-    requests of 512 prompt tokens and 32 new ones; every prefill launch of
-    B3 must be on ``variant``."""
+def leaves(tree):
+    """Every tensor of a parameter tree (nested dicts and lists)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in leaves(v)]
+    return [tree]
+
+
+def kernels_per_call(fn, n):
+    """Device kernels launched per call of ``fn`` over ``n`` calls, read
+    from a ``torch.profiler`` trace (written under build/profile/)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = ROOT / "build" / "profile"
+    out.mkdir(parents=True, exist_ok=True)
+    trace = out / "chip_smoke_decode_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    return sum(e.get("ph") == "X" and e.get("cat") == "kernel"
+               for e in events) / n
+
+
+def phase_serve(arch, variant, num_layers=None):
+    """Phases 7, 9, 12 and 13: RealServer at ``arch``'s full width on the
+    card (``num_layers`` cuts its depth), 4 requests of 512 prompt tokens
+    and 32 new ones. Under GQA every prefill launch of B3 must be on
+    ``variant`` and B4 runs once a layer a decoded token; under MLA neither
+    runs (MLA is torch ops). Under MoE the (token, choice) pairs that
+    capacity drops at prefill are counted. Afterwards the kernels of one
+    decode step (cur_len 512 on) are counted under the profiler."""
     import numpy as np
     import torch
 
@@ -692,24 +751,24 @@ def phase_serve(arch, variant):
     from repro_torch.configs.base import VectorPoolConfig
     from repro_torch.kernels import decode_attention, distance, flash_attention
     from repro_torch.launch.serve import RealServer
+    from repro_torch.models import model_zoo, moe
 
     cfg = get_config(arch)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     B, S, NEW = 4, 512, 32
     t0 = time.perf_counter()
     server = RealServer(cfg, VectorPoolConfig(**SERVE_POOL), rag_interval=8,
                         seed=0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in (server.params["embed"],
-                                       server.params.get("lm_head"))
-                   if t is not None)  # None: tied to the embedding
-    n_params += sum(w.numel() for blk in server.params["blocks"]
-                    for part in blk.values()
-                    for w in (part.values() if isinstance(part, dict)
-                              else [part]))
+    n_params = sum(t.numel() for t in leaves(server.params))
     finite = {"all": torch.ones((), dtype=torch.bool, device="cuda"),
               "steps": 0}
+    dropped = {"pairs": torch.zeros((), dtype=torch.long, device="cuda"),
+               "calls": 0}
     prefill, decode = server._prefill, server._decode
+    moe_forward = moe.moe_forward
 
     def watched(fn):
         def run(*a):
@@ -719,14 +778,29 @@ def phase_serve(arch, variant):
             return lg, caches
         return run
 
+    def counted_moe(params, x, mcfg, capacity=0):
+        if x.shape[0] > B:  # a prefill call: count what capacity drops
+            C = capacity or moe.capacity_for(x.shape[0], mcfg)
+            _, idx = moe.route_topk(x.float() @ params["router"],
+                                    mcfg.moe.top_k)
+            occ = torch.bincount(idx.reshape(-1),
+                                 minlength=mcfg.moe.num_experts)
+            dropped["pairs"] += (occ - C).clamp(min=0).sum()
+            dropped["calls"] += 1
+        return moe_forward(params, x, mcfg, capacity)
+
     server._prefill, server._decode = watched(prefill), watched(decode)
+    moe.moe_forward = counted_moe
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(B, S)).astype(np.int32)
     torch.cuda.reset_peak_memory_stats()
     for mod in (distance, flash_attention, decode_attention):
         mod.reset_launches()
-    toks, stats = server.generate(prompts, max_new=NEW)
-    torch.cuda.synchronize()
+    try:
+        toks, stats = server.generate(prompts, max_new=NEW)
+        torch.cuda.synchronize()
+    finally:
+        moe.moe_forward = moe_forward
     launches = {**distance.launches, **flash_attention.launches,
                 **decode_attention.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -735,23 +809,42 @@ def phase_serve(arch, variant):
           "a generated token is out of the vocabulary")
     check(bool(finite["all"].item()) and finite["steps"] == 1 + S + NEW,
           f"{arch}: non-finite logits (or {finite['steps']} model calls)")
-    check(launches["flash_attention"] == cfg.num_layers
-          and launches[variant] == cfg.num_layers,
-          f"{arch}: flash_attention launched {launches['flash_attention']} "
-          f"times ({launches[variant]} on {variant}), not once per layer "
-          f"({cfg.num_layers}) on {variant}")
-    check(launches["decode_attention"] == cfg.num_layers * (S + NEW),
-          f"{arch}: decode_attention launched {launches['decode_attention']} "
-          f"times, not {cfg.num_layers * (S + NEW)}")
+    if cfg.attn_kind == "gqa":
+        check(launches["flash_attention"] == cfg.num_layers
+              and launches[variant] == cfg.num_layers,
+              f"{arch}: flash_attention launched {launches['flash_attention']}"
+              f" times ({launches[variant]} on {variant}), not once per layer "
+              f"({cfg.num_layers}) on {variant}")
+        check(launches["decode_attention"] == cfg.num_layers * (S + NEW),
+              f"{arch}: decode_attention launched "
+              f"{launches['decode_attention']} times, not "
+              f"{cfg.num_layers * (S + NEW)}")
+    else:  # MLA attends through torch ops: no B3 or B4 launch
+        check(launches["flash_attention"] == launches["decode_attention"] == 0,
+              f"{arch}: MLA launched {launches}")
+    check(dropped["calls"] == (cfg.num_layers if cfg.mlp_kind == "moe" else 0),
+          f"{arch}: {dropped['calls']} MoE prefill calls")
     check(launches["distance_slot_gather"] >= B,
           f"{arch}: distance_slot_gather launched "
           f"{launches['distance_slot_gather']} times on the serving path")
-    del server, prefill, decode, watched
+    caches = model_zoo.init_decode_caches(cfg, B, S + NEW, "cuda")
+    tok = server._tokens(toks[:, :1])
+    pos = iter(range(S, S + NEW))
+    step = lambda: decode(server.params, tok, caches, next(pos))  # noqa: E731
+    for _ in range(2):
+        step()
+    k_step = kernels_per_call(step, 4)
+    out = dict(cfg=cfg, init_s=init_s, params=n_params,
+               analytic=model_zoo.analytic_param_count(cfg), toks=toks,
+               stats=stats, launches=launches, peak_gib=peak_gib,
+               tok_per_s=B * NEW / stats["decode_s"], kernels_step=k_step,
+               dropped=int(dropped["pairs"].item()),
+               routed=cfg.num_layers * B * S * cfg.moe.top_k
+               if cfg.mlp_kind == "moe" else 0)
+    del server, prefill, decode, watched, caches, step
     gc.collect()  # the watched calls and the server refer to each other
     torch.cuda.empty_cache()
-    return dict(cfg=cfg, init_s=init_s, params=n_params, toks=toks,
-                stats=stats, launches=launches, peak_gib=peak_gib,
-                tok_per_s=B * NEW / stats["decode_s"])
+    return out
 
 
 SHARDED = dict(num_shards=SHARDS, replicas_per_shard=2,
@@ -1309,6 +1402,180 @@ def phase_card_vs_cpu():
                 card_s=card_s, cpu_s=cpu_s, launches=launches)
 
 
+def phase_mla_attention():
+    """MLA's prefill attention at deepseek-v3's published widths (B=4,
+    S=512, 128 heads, q/k head dim 192, v 128, bf16, causal): the port's
+    torch ops (``attention.attend_blocked``; no TPU kernel and no hand-written
+    one) beside torch's scaled_dot_product_attention on the same inputs (a
+    yardstick only; the port never calls it), each per call by CUDA events;
+    the bound is bytes (q, k, v read once, the output written once) or bf16
+    operations, whichever is larger."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import attention
+
+    B, S, H, hd, hd_v = 4, 512, 128, 192, 128
+    g = torch.Generator(device="cuda").manual_seed(40)
+    q, k = (torch.randn((B, S, H, hd), generator=g, device="cuda")
+            .bfloat16() for _ in range(2))
+    v = torch.randn((B, S, H, hd_v), generator=g, device="cuda").bfloat16()
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")
+
+    def port(q, k, v):
+        return attention.attend_blocked(q, k, v, pos, pos, causal=True)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True).transpose(1, 2)
+
+    out = port(q, k, v)
+    want = port(q.float(), k.float(), v.float())  # the same ops in float32
+    torch.cuda.synchronize()
+    # 5e-2: the reference forms q.k in bf16 before the softmax (|q.k| ~ 14
+    # here, so a score moves by up to ~2^-8 of it)
+    err, ok = close(out, want, 5e-2)
+    check(ok, f"MLA attend_blocked bf16 vs float32: max err {err}")
+    args = [(q, k, v)]
+    ms = device_ms(port, args, 20)[0]
+    try:  # SDPA may refuse a v head dim other than q's
+        lib_err = (sdpa(q, k, v).float() - want).abs().max().item()
+        lib_ms = device_ms(sdpa, args, 20)[0]
+    except RuntimeError:
+        lib_err = lib_ms = None
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2
+    flops = 2 * B * H * (hd + hd_v) * S * (S + 1) // 2
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / BF16_FLOPS * 1e3}
+    by = max(terms, key=terms.get)
+    return dict(ms=ms, library_ms=lib_ms, bound_ms=terms[by], bound_by=by,
+                err=err, library_err=lib_err)
+
+
+def phase_deepseek_card_vs_cpu():
+    """Phase 14: the DeepSeek family through RealServer on the card and on
+    the CPU, one set of weights each: deepseek-moe-16b's published widths
+    cut to 2 layers, then deepseek-v3's smoke config, float32, 2 prompts of
+    32 tokens and 8 new (equal tokens, prefill logits within 1e-3); then one
+    layer of deepseek-v3's MLA at its published widths, float32: forward
+    over 2 x 32 tokens and 8 absorbed decode steps, card against CPU
+    (1e-3)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import VectorPoolConfig
+    from repro_torch.launch.serve import RealServer
+    from repro_torch.models import mla, model_zoo
+
+    pool = VectorPoolConfig(**SERVE_POOL)
+    out = {}
+    for name, cfg in (
+            ("deepseek-moe-16b x 2 layers", dataclasses.replace(
+                get_config("deepseek-moe-16b"), num_layers=2,
+                dtype="float32")),
+            ("deepseek-v3-671b smoke", get_smoke_config("deepseek-v3-671b"))):
+        t0 = time.perf_counter()
+        cpu = RealServer(cfg, pool, rag_interval=8, seed=0, device="cpu")
+        card = RealServer(cfg, pool, rag_interval=8, seed=0, device="cuda",
+                          params=convert.lm_params_from_numpy(
+                              cfg, convert.lm_params_to_numpy(cpu.params),
+                              "cuda"))
+        setup_s = time.perf_counter() - t0
+        prompts = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, size=(2, 32)).astype(np.int32)
+        t0 = time.perf_counter()
+        toks_card, _ = card.generate(prompts, max_new=8)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        toks_cpu, _ = cpu.generate(prompts, max_new=8)
+        cpu_s = time.perf_counter() - t0
+        check(np.array_equal(toks_card, toks_cpu),
+              f"{name}: card tokens {toks_card.tolist()} != CPU tokens "
+              f"{toks_cpu.tolist()}")
+        lg = {}
+        for dev, server in (("card", card), ("cpu", cpu)):
+            batch = {"tokens": torch.as_tensor(prompts, device=server.device)}
+            lg[dev] = model_zoo.prefill_fn(cfg, server.params, batch)[0].cpu()
+        # atol = rtol = 1e-3: float32 sums in other orders, as phase 8
+        err, ok = close(lg["card"], lg["cpu"], 1e-3)
+        check(ok, f"{name}: prefill logits card vs CPU differ by {err}")
+        out[name] = dict(toks=toks_card, logit_err=err, setup_s=setup_s,
+                         card_s=card_s, cpu_s=cpu_s)
+        del card, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"), dtype="float32")
+    cpu_p = mla.init_mla(torch.Generator().manual_seed(0), cfg, torch.float32)
+    card_p = {k: v.cuda() for k, v in cpu_p.items()}
+    x = torch.randn((2, 32, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    errs = []
+    fwd = [mla.mla_forward(p, x.to(dev), cfg)[0].cpu()
+           for p, dev in ((card_p, "cuda"), (cpu_p, "cpu"))]
+    errs.append(close(fwd[0], fwd[1], 1e-3))
+    caches = [mla.init_mla_cache(cfg, 2, 8, torch.float32, dev)
+              for dev in ("cuda", "cpu")]
+    for i in range(8):
+        step = [mla.mla_decode_step(p, x[:, i:i + 1].to(dev), c, i, cfg)[0]
+                .cpu() for p, c, dev in ((card_p, caches[0], "cuda"),
+                                         (cpu_p, caches[1], "cpu"))]
+        errs.append(close(step[0], step[1], 1e-3))
+    check(all(ok for _, ok in errs),
+          f"MLA layer card vs CPU: max errors {[e for e, _ in errs]}")
+    out["mla_layer_err"] = max(e for e, _ in errs)
+    del card_p, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_search_batch(db, graph, queries, true_ids, pool_ext, pool_ids, cfg):
+    """Phase 15: CAGRA's per-request lockstep search (``search_batch``, the
+    baseline the continuous-batching pool is measured against) on phase 3's
+    10^6 x 128 index, the same 1024 queries, at the pool's top_m,
+    parents_per_step and visited_slots, 8 entry points; max_iters 256 so
+    the batch runs until every query has converged. recall@10, mean extends
+    and the iterations the batch held, beside phase 3's pool on the same
+    queries."""
+    import numpy as np
+    import torch
+
+    from repro_torch.vector.cagra import search_batch
+    from repro_torch.vector.ref import recall_at_k
+
+    db_t = torch.as_tensor(db, device="cuda")
+    graph_t = torch.as_tensor(graph, device="cuda")
+    q_t = torch.as_tensor(queries, device="cuda")
+    kw = dict(top_m=cfg.top_m, p=cfg.parents_per_step, max_iters=256,
+              visited_slots=cfg.visited_slots, device="cuda")
+    search_batch(db_t, graph_t, q_t[:8], **kw)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, dists, ext, iters = search_batch(db_t, graph_t, q_t, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ids = ids[:, :cfg.top_k].cpu().numpy()
+    ext = ext.cpu().numpy()
+    check(ids.shape == (len(queries), cfg.top_k) and (ids >= 0).all(),
+          "search_batch results are not valid ids")
+    check(iters < 256 and int(ext.max()) == iters,
+          f"search_batch ran {iters} iterations, extends max {ext.max()}")
+    d = dists[:, :cfg.top_k].cpu().numpy()
+    check(np.isfinite(d).all() and (np.diff(d, axis=1) >= 0).all(),
+          "search_batch distances are not finite and ascending")
+    del db_t, graph_t, q_t
+    torch.cuda.empty_cache()
+    return dict(recall=recall_at_k(ids, true_ids), ext_mean=float(ext.mean()),
+                ext_max=int(ext.max()), iters=iters, wall_s=wall,
+                pool_recall=recall_at_k(pool_ids, true_ids),
+                pool_ext_mean=float(np.mean(pool_ext)),
+                pool_ext_max=int(np.max(pool_ext)),
+                same=float((ids == pool_ids).all(axis=1).mean()))
+
+
 def main():
     import numpy as np
     import torch
@@ -1473,16 +1740,21 @@ def main():
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 7: the serving path at full width ---------------------------
-    def serve_line(phase, srv, t0):
+    def serve_line(phase, srv, t0, cut=""):
         st = srv["stats"]
-        return (f"phase {phase} serve {srv['cfg'].name}: {srv['params'] / 1e9:.3f}e9 "
-                f"weights (bf16) made on the card in {srv['init_s']:.1f} s | 4 "
+        drop = (f", {srv['dropped']} of {srv['routed']} routed (token, expert) "
+                "pairs dropped by capacity at prefill" if srv["routed"] else "")
+        return (f"phase {phase} serve {srv['cfg'].name}{cut}: analytic "
+                f"{srv['analytic']:,} parameters, {srv['params'] / 1e9:.3f}e9 "
+                f"weights ({srv['cfg'].dtype}, norms included) made on the card in "
+                f"{srv['init_s']:.1f} s | 4 "
                 f"requests x 512 prompt + 32 new tokens: ttft_s={st['ttft_s']:.3f} "
                 f"decode_s={st['decode_s']:.3f} ({srv['tok_per_s']:.2f} decoded "
                 f"tokens per wall-second), rag_probes={st['rag_probes']}, "
-                f"stalls={st['stalls']}, peak allocated {srv['peak_gib']:.2f} GiB, "
-                f"launches {srv['launches']} | first request's tokens "
-                f"{srv['toks'][0].tolist()} | {smi} | "
+                f"stalls={st['stalls']}, every logit finite{drop}, peak allocated "
+                f"{srv['peak_gib']:.2f} GiB, {srv['kernels_step']:.1f} kernels a "
+                f"decode step (profiler), launches {srv['launches']} | first "
+                f"request's tokens {srv['toks'][0].tolist()} | {smi} | "
                 f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1576,6 +1848,51 @@ def main():
           f"{fx['wall_card']:.2f} s vs {fx['wall_cpu']:.2f} s | {smi} | "
           f"{cl['phase_s']:.1f} s", flush=True)
 
+    # ---- phase 12: deepseek-moe-16b at its published size (MoE) ----------
+    t0 = time.perf_counter()
+    dsm = phase_serve("deepseek-moe-16b", "flash_wgmma")
+    print(serve_line(12, dsm, t0), flush=True)
+
+    # ---- phase 13: deepseek-v3-671b at full width, depth 1 (MLA, MoE, MTP)
+    t0 = time.perf_counter()
+    dsv = phase_serve("deepseek-v3-671b", None, num_layers=1)
+    mla_t = phase_mla_attention()
+    lib = ("SDPA refused these inputs" if mla_t["library_ms"] is None else
+           f"library_ms(sdpa)={mla_t['library_ms']:.5f} (vs the float32 run "
+           f"{mla_t['library_err']:.3g})")
+    print(serve_line(13, dsv, t0, cut=" (61 layers cut to 1; the MTP block "
+                     "made, not run)")
+          + f" | MLA prefill attention (4, 512, 128 heads, qk 192 / v 128, "
+          f"bf16, torch ops): ms={mla_t['ms']:.5f}, {lib}, bound_ms="
+          f"{mla_t['bound_ms']:.6f} ({mla_t['bound_by']}), vs its float32 run "
+          f"{mla_t['err']:.3g}", flush=True)
+
+    # ---- phase 14: the DeepSeek family, card vs CPU --------------------------
+    t0 = time.perf_counter()
+    dcc = phase_deepseek_card_vs_cpu()
+    print("phase 14 card vs cpu (DeepSeek, f32): " + "; ".join(
+        f"{name}: tokens equal {r['toks'].tolist()}, prefill logits max "
+        f"|card - cpu| {r['logit_err']:.3g} (atol = rtol = 1e-3), set-up "
+        f"{r['setup_s']:.1f} s, generate {r['card_s']:.1f} s on the card, "
+        f"{r['cpu_s']:.1f} s on the CPU"
+        for name, r in dcc.items() if name != "mla_layer_err")
+        + f"; deepseek-v3's MLA layer at its published widths: forward and 8 "
+        f"decode steps within {dcc['mla_layer_err']:.3g} (1e-3) | "
+        f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 15: CAGRA's per-request baseline on phase 3's index ---------
+    t0 = time.perf_counter()
+    sb = phase_search_batch(db, graph, queries, true_ids, ext_gpu, ids_gpu, cfg)
+    print(f"phase 15 search_batch (per-request lockstep, A4): {NUM_QUERIES} "
+          f"queries over phase 3's {N} x {D_IM} index, top_m {cfg.top_m}, p "
+          f"{cfg.parents_per_step}: recall@10={sb['recall']:.4f} (phase 3's "
+          f"pool {sb['pool_recall']:.4f}), extends mean {sb['ext_mean']:.2f} "
+          f"max {sb['ext_max']} (pool {sb['pool_ext_mean']:.2f} / "
+          f"{sb['pool_ext_max']}), the batch held {sb['iters']} iterations, "
+          f"top-10 lists equal to the pool's {sb['same']:.4f}, wall "
+          f"{sb['wall_s']:.3f} s ({NUM_QUERIES / sb['wall_s']:.1f} queries per "
+          f"wall-second) | {time.perf_counter() - t0:.1f} s", flush=True)
+
     # launches on each kernel's path: B1/B2 on the pool (phases 3, 4); B3's
     # total, its wgmma variant and B4 on phi3's serving path (phase 7); the
     # f32 variant on phase 8's float32 server; the hd-256 wgmma variant on
@@ -1588,6 +1905,13 @@ def main():
     launches["distance_slot_gather"] += sh["launches"]["distance_slot_gather"]
     launches["distance_slot_gather"] += cl["launches"]["distance_slot_gather"]
     launches["distance_onehot"] += sh["oh_launches"]["distance_onehot"]
+    # phase 12's deepseek-moe-16b adds its B3 (flash_wgmma) and B4
+    # launches, phases 12 and 13 their B1 probes (deepseek-v3's MLA
+    # launches neither B3 nor B4)
+    for n in ("flash_attention", "flash_wgmma", "decode_attention"):
+        launches[n] += dsm["launches"][n]
+    for srv_ in (dsm, dsv):
+        launches["distance_slot_gather"] += srv_["launches"]["distance_slot_gather"]
     launches.update(flash_fp32=cmp_["launches"]["flash_fp32"],
                     flash_wgmma256=gem["launches"]["flash_wgmma256"],
                     flash_mma=ares["launches"]["flash_mma"])
@@ -1601,12 +1925,12 @@ def main():
     by_variant = {c["variant"]: c for c in reversed(cases)}
     var_err = {v: max(c["max_abs_err"] for c in cases if c["variant"] == v)
                for v in by_variant}
-    dec = {c["shape"][2]: c for c in dr["cases"] if c["cur_len"] == 543}
+    dec = {c["shape"][2:]: c for c in dr["cases"] if c["cur_len"] == 543}
     main_case = {"flash_attention": cases[0], "flash_wgmma": cases[0],
                  "flash_wgmma256": by_variant["flash_wgmma256"],
                  "flash_fp32": by_variant["flash_fp32"],
                  "flash_mma": by_variant["flash_mma"],
-                 "decode_attention": dec[40]}
+                 "decode_attention": dec[(40, 10, 128)]}
     line = []
     for name, (source, replaces) in KERNELS.items():
         r = kres.get(name) or main_case[name]
@@ -1639,12 +1963,23 @@ def main():
                                          "bound_by", "bound_fp32_cores_ms")
                  if key in c} for c in cases if c["variant"] == name]
         if name == "decode_attention":
-            g = dec[16]
-            entry["gemma_7b"] = {
-                "shape": g["shape"], "launches": gem["launches"]["decode_attention"],
-                "max_abs_err": g["max_abs_err"], "ms": g["ms"], "warm_ms": g["warm_ms"],
-                "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-                "bound_by": g["bound_by"], "library_ms": g["library_ms"]}
+            for key, shape, srv_ in (("gemma_7b", (16, 16, 256), gem),
+                                     ("deepseek_moe_16b", (16, 16, 128), dsm)):
+                g = dec[shape]
+                entry[key] = {
+                    "shape": g["shape"],
+                    "launches": srv_["launches"]["decode_attention"],
+                    "max_abs_err": g["max_abs_err"], "ms": g["ms"],
+                    "warm_ms": g["warm_ms"], "plain_ms": g["plain_ms"],
+                    "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+                    "library_ms": g["library_ms"]}
+        if name == "flash_wgmma":
+            c = next(c for c in cases if c["shape"] == (4, 512, 16, 16, 128))
+            entry["deepseek_moe_16b"] = {
+                key: c[key] for key in ("shape", "dtype", "max_abs_err", "ms",
+                                        "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by")}
+            entry["deepseek_moe_16b"]["launches"] = dsm["launches"]["flash_wgmma"]
         line.append(entry)
     print(f"all phases took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)

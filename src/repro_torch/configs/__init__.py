@@ -1,5 +1,6 @@
 """Architecture config registry of the port: ``get_config(arch)`` /
-``get_smoke_config(arch)`` over the dense GQA architectures it serves.
+``get_smoke_config(arch)`` over the architectures it serves: the dense GQA
+family and the DeepSeek family (MoE, MLA, MTP).
 
 Each module here is a copy of the JAX package's ``configs/<arch>.py``
 (``CONFIG`` at the published size, ``SMOKE_CONFIG`` reduced for the CPU).
@@ -19,9 +20,11 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exported)
     VectorPoolConfig,
 )
 
-# arch-id -> module name (the dense GQA family: block_kind="attn",
-# attn_kind="gqa", a dense swiglu/geglu MLP)
+# arch-id -> module name (block_kind="attn": the dense GQA family and the
+# DeepSeek family's MoE, MLA and MTP)
 _ARCH_MODULES: Dict[str, str] = {
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
     "phi3-medium-14b": "phi3_medium_14b",
     "gemma-7b": "gemma_7b",
     "command-r-plus-104b": "command_r_plus_104b",
@@ -31,8 +34,6 @@ _ARCH_MODULES: Dict[str, str] = {
 
 # arch-id -> family, for the JAX package's archs the port does not serve yet
 _NOT_PORTED: Dict[str, str] = {
-    "deepseek-v3-671b": "MoE + MLA",
-    "deepseek-moe-16b": "MoE",
     "seamless-m4t-large-v2": "encoder-decoder",
     "jamba-1.5-large-398b": "mamba/attention hybrid with MoE",
     "xlstm-350m": "xLSTM",

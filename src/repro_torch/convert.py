@@ -72,38 +72,41 @@ def _layer_tree(tree, i: int):
 
 
 def lm_params_from_numpy(cfg, params, device="cuda"):
-    """The port's parameters from a dense LM parameter tree in the JAX
-    package's layout with numpy leaves (``jax.device_get`` of
+    """The port's parameters from an LM parameter tree in the JAX package's
+    layout with numpy leaves (``jax.device_get`` of
     ``model_zoo.init_params``): ``embed``, ``final_norm``, ``lm_head``
-    (untied) and ``blocks["l0"]``, each leaf stacked on a leading layer
-    axis. Returns the port's tree (``blocks`` a list of per-layer dicts)
-    on ``device`` in ``cfg.dtype``; values are carried bit for bit
+    (untied), ``blocks["l0"]`` with each leaf stacked on a leading layer
+    axis (a MoE's experts stacked (L, E, ., .)) and the unstacked ``mtp``
+    subtree. Returns the port's tree (``blocks`` a list of per-layer dicts)
+    on ``device``, each leaf in the dtype ``init_lm_params`` gives it:
+    ``cfg.dtype``, the MoE router float32. Values are carried bit for bit
     (bfloat16 leaves pass exactly through float32)."""
+    from repro_torch.models.moe import ROUTER_DTYPE
     from repro_torch.models.transformer import DTYPES, check_supported
 
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
 
-    def put(tree):
+    def put(tree, name=""):
         if isinstance(tree, dict):
-            return {k: put(v) for k, v in tree.items()}
+            return {k: put(v, k) for k, v in tree.items()}
         return torch.tensor(np.asarray(tree, np.float32)).to(
-            device=dev, dtype=dtype)
+            device=dev, dtype=ROUTER_DTYPE if name == "router" else dtype)
 
     stacked = params["blocks"]["l0"]
     n = len(np.asarray(stacked["ln1"]))
     if n != cfg.num_layers:
         raise ValueError(f"tree has {n} layers, cfg {cfg.num_layers}")
-    out = {k: put(v) for k, v in params.items() if k != "blocks"}
+    out = {k: put(v, k) for k, v in params.items() if k != "blocks"}
     out["blocks"] = [put(_layer_tree(stacked, i)) for i in range(n)]
     return out
 
 
 def lm_params_to_numpy(params):
     """The inverse of ``lm_params_from_numpy``: the JAX package's layout
-    (``blocks["l0"]`` stacked on a leading layer axis) with float32 numpy
-    leaves, exact for float32 and bfloat16 parameters."""
+    (``blocks["l0"]`` stacked on a leading layer axis, ``mtp`` unstacked)
+    with float32 numpy leaves, exact for float32 and bfloat16 parameters."""
     def get(tree):
         if isinstance(tree, dict):
             return {k: get(v) for k, v in tree.items()}

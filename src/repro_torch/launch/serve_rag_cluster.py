@@ -8,8 +8,6 @@ The vector pool is the port's, on ``--device`` (default ``cuda``; every
 retrieval runs the distance kernel there). Prefill, decode and the KV link
 are priced by the roofline model on the V5E row, as in the JAX package:
 the printed latencies are simulated model times, not times of the card.
-``--arch`` defaults to ``phi3-medium-14b``: the example's
-``deepseek-moe-16b`` is a MoE config, which waits for ROADMAP item A12.
 
   python -m repro_torch.launch.serve_rag_cluster [--placement X] \\
       [--device cpu]
@@ -36,7 +34,7 @@ def main(argv=None):
                     choices=["trinity", "prefill_first", "decode_first",
                              "fifo_shared"])
     ap.add_argument("--requests", type=int, default=48)
-    ap.add_argument("--arch", default="phi3-medium-14b",
+    ap.add_argument("--arch", default="deepseek-moe-16b",
                     choices=list_archs())
     ap.add_argument("--device", default="cuda",
                     help="device of the vector pool (cuda or cpu)")

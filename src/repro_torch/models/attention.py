@@ -2,7 +2,10 @@
 and one-token decode over a KV cache through the decode-attention kernel
 (the JAX package's ``models/attention.py``; its XLA paths
 ``attend_blocked`` and ``_cached_attention_core`` compute the functions
-that ``kernels/ops.py`` dispatches here).
+that ``kernels/ops.py`` dispatches here). ``attend_blocked``, ``gqa_scores``
+and ``gqa_values`` are also here as torch ops: MLA attends through
+``attend_blocked`` (its q/k head dim differs from its v head dim, which the
+flash kernel does not take).
 
 Shapes:
   x:      (B, S, d_model)
@@ -17,6 +20,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers
+
+NEG_INF = -1e30
 
 
 def init_attention(gen: torch.Generator, cfg, dtype):
@@ -47,6 +52,52 @@ def _project_qkv(params, x, cfg):
     return (q.reshape(B, S, cfg.num_heads, hd),
             k.reshape(B, S, cfg.num_kv_heads, hd),
             v.reshape(B, S, cfg.num_kv_heads, hd))
+
+
+def _sqrt_hd(hd: int, dtype):
+    """``jnp.sqrt(hd).astype(dtype)``: the float32 square root, cast."""
+    return torch.tensor(float(hd), dtype=torch.float32).sqrt().to(dtype)
+
+
+def gqa_scores(q, k):
+    """q: (B, Sq, H, hd), k: (B, Sk, Hkv, hd) -> (B, Hkv, g, Sq, Sk)."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k)
+    return scores / _sqrt_hd(hd, q.dtype).to(q.device)
+
+
+def gqa_values(probs, v):
+    """probs: (B, Hkv, g, Sq, Sk), v: (B, Sk, Hkv, hd) -> (B, Sq, H, hd)."""
+    B, Hkv, g, Sq, _ = probs.shape
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    return out.reshape(B, Sq, Hkv * g, v.shape[-1])
+
+
+def attend_blocked(q, k, v, q_positions, kv_positions, causal: bool,
+                   block_q: int = 512):
+    """Blocked attention over q blocks of at most ``block_q`` rows, so the
+    (Sq, Sk) scores are never held at once. Scores in q's dtype divided by
+    sqrt(hd) cast to it, softmax in float32, probabilities in v's dtype (the
+    reference's casts); v has a head dim of its own. On one card the
+    reference's sequence-parallel split (``seq_parallel``) is always 1.
+
+    q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v);
+    positions 1-D. Returns (B, Sq, H, hd_v) in v's dtype."""
+    B, Sq, H, hd = q.shape
+    qb = min(block_q, Sq)
+    while Sq % qb:
+        qb //= 2
+    outs = []
+    for s0 in range(0, Sq, qb):
+        scores = gqa_scores(q[:, s0:s0 + qb], k).float()
+        if causal:
+            mask = q_positions[s0:s0 + qb, None] >= kv_positions[None, :]
+            scores = torch.where(mask, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        outs.append(gqa_values(probs, v))
+    return torch.cat(outs, dim=1)
 
 
 def attention_forward(params, x, cfg, positions=None, causal: bool = True):

@@ -1,11 +1,13 @@
-"""Architecture dispatch: init / prefill / decode per family, and analytic
-parameter counts (the JAX package's ``models/model_zoo.py``).
+"""Architecture dispatch: init / prefill / decode per family, analytic
+parameter counts and MODEL_FLOPS (the JAX package's
+``models/model_zoo.py``).
 
-The port serves the dense GQA family; the other families raise
-``NotImplementedError`` naming ROADMAP Queue A item 12, and the training
-entry (``loss_fn``) waits for item 13. ``input_specs`` and ``param_specs``
-build ``jax.ShapeDtypeStruct`` stand-ins for the TPU dry run and have no
-counterpart here (item 14).
+The port serves attention blocks (the dense GQA family and the DeepSeek
+family: MLA, MoE, MTP); the mamba/attention hybrid, xLSTM and
+encoder-decoder families raise ``NotImplementedError`` naming ROADMAP
+Queue A item 12, and the training entry (``loss_fn``) waits for item 13.
+``input_specs`` and ``param_specs`` build ``jax.ShapeDtypeStruct``
+stand-ins for the TPU dry run and have no counterpart here (item 14).
 """
 from __future__ import annotations
 
@@ -45,19 +47,63 @@ def init_decode_caches(cfg, batch: int, max_len: int, device="cuda"):
 
 def _attn_params(cfg) -> int:
     hd = cfg.resolved_head_dim
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return (cfg.d_model * m.q_lora_rank + m.q_lora_rank * cfg.num_heads * qk
+                + cfg.d_model * m.kv_lora_rank + cfg.d_model * m.qk_rope_head_dim
+                + m.kv_lora_rank * cfg.num_heads * m.qk_nope_head_dim
+                + m.kv_lora_rank * cfg.num_heads * m.v_head_dim
+                + cfg.num_heads * m.v_head_dim * cfg.d_model)
     return (cfg.d_model * cfg.num_heads * hd
             + 2 * cfg.d_model * cfg.num_kv_heads * hd
             + cfg.num_heads * hd * cfg.d_model)
 
 
+def _moe_params(cfg, active_only: bool) -> int:
+    m = cfg.moe
+    e = m.top_k if active_only else m.num_experts
+    p = cfg.d_model * m.num_experts  # router (always evaluated)
+    p += e * 3 * cfg.d_model * m.expert_ffn
+    if m.num_shared_experts:
+        p += 3 * cfg.d_model * m.shared_ffn_dim * m.num_shared_experts
+    return p
+
+
+def _ffn_params(cfg, use_moe: bool, active_only: bool) -> int:
+    if use_moe:
+        return _moe_params(cfg, active_only)
+    return 0 if cfg.mlp_kind == "none" else 3 * cfg.d_model * cfg.d_ff
+
+
 def analytic_param_count(cfg, active_only: bool = False) -> int:
-    """The JAX package's count for the dense family (embedding, untied
-    head, attention and a gated MLP per layer; biases and norms are not
-    counted there either). ``active_only`` changes nothing without MoE."""
-    transformer.check_supported(cfg)
+    """The JAX package's count (embedding, untied head, attention and the
+    MLP or MoE of each layer, the MTP block; biases and norms are not
+    counted). ``active_only`` counts the top-k routed experts of each MoE
+    (the router and shared experts always). The mamba and xLSTM terms come
+    with their families (ROADMAP Queue A item 12)."""
+    kinds = transformer.group_layer_kinds(cfg)  # raises naming item 12
     vp = transformer.lm_head_vocab(cfg)
     total = vp * cfg.d_model  # embedding
     if not cfg.tie_embeddings:
         total += cfg.d_model * vp  # head
-    per_layer = _attn_params(cfg) + 3 * cfg.d_model * cfg.d_ff
-    return total + per_layer * cfg.num_layers
+    per_group = sum(
+        _attn_params(cfg) + _ffn_params(cfg, transformer._uses_moe(cfg, i),
+                                        active_only)
+        for i, _ in enumerate(kinds))
+    total += per_group * transformer.num_groups(cfg)
+    if cfg.mtp_depth > 0:
+        total += 2 * cfg.d_model * cfg.d_model + _attn_params(cfg)
+        total += _moe_params(cfg, active_only) if cfg.mlp_kind == "moe" \
+            else 3 * cfg.d_model * cfg.d_ff
+    return total
+
+
+def model_flops(cfg, shape) -> float:
+    """MODEL_FLOPS: 6·N·D (train) or 2·N·D (fwd-only), N = active params
+    excluding the embedding table, D = processed tokens."""
+    vp = transformer.lm_head_vocab(cfg)
+    n = analytic_param_count(cfg, active_only=True) - vp * cfg.d_model
+    d_tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
+    mult = 6.0 if shape.kind == "train" else 2.0
+    return mult * n * d_tokens

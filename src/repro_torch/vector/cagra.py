@@ -1,11 +1,18 @@
-"""Visited-table probe and topM merge of the graph search, batched over
-request slots (the JAX package vmaps its per-slot versions; here the slot
-dimension is written out).
+"""Graph search batched over queries: the visited-table probe, the topM
+merge, one extend step, and the per-request lockstep search that Trinity
+§3.2 improves on (the JAX package's ``vector/cagra.py``, which vmaps its
+per-query versions; here the query dimension is written out).
 
 Semantics (shared with the engine in ``core/continuous_batching.py``):
-  · per-slot state: topM (ids, dists), expanded flags, visited hash table
+  · per-query state: topM (ids, dists), expanded flags, visited hash table
   · one *extend* = pick ≤ p best unexpanded topM entries, fetch their D
     neighbours, drop visited, compute distances, merge into topM
+  · converge when no unexpanded entry remains in topM
+
+"Per-request batching" (``search_batch``) = a batch of queries steps in
+lockstep and returns only when EVERY query has converged (or
+``max_iters``): the stragglers hold the whole batch. Its distances are
+torch ops, as the reference computes them outside Pallas.
 
 Bit-parity with the JAX package rests on two points:
   · the Knuth hash multiplies in uint32 and wraps mod 2^32; here it runs in
@@ -16,7 +23,12 @@ Bit-parity with the JAX package rests on two points:
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+from repro_torch import prng
+from repro_torch.device import resolve_device
 
 INF = 1e30
 HASH_MULT = 2654435761  # Knuth multiplicative hash
@@ -92,3 +104,102 @@ def _merge_topm(top_ids, top_dists, expanded, cand_ids, cand_dists):
     exp = torch.cat([expanded, torch.zeros_like(keep)], dim=1)
     best, order = smallest_k(dists, M)
     return ids.gather(1, order), best, exp.gather(1, order)
+
+
+class SearchState(NamedTuple):
+    top_ids: torch.Tensor  # (Q, M) int32, -1 empty
+    top_dists: torch.Tensor  # (Q, M) float32
+    expanded: torch.Tensor  # (Q, M) bool
+    visited: torch.Tensor  # (Q, V) int32 hash table, -1 empty
+    done: torch.Tensor  # (Q,) bool
+    extends: torch.Tensor  # (Q,) int32, extend steps consumed
+
+
+def _l2_to(db, ids, queries):
+    """(Q, C) squared L2 distances from db rows ``ids`` (clamped into
+    [0, N)) to each row's query, in float32, summed in the order of the
+    reference's ``jnp.sum`` on the CPU for widths a multiple of 32 from 64
+    up: squares summed one by one within each 32-wide chunk, then the
+    chunks' sums one by one (bit-equal there; other widths differ in the
+    last bits)."""
+    x = db[ids.long().clamp(0, db.shape[0] - 1)].float()  # (Q, C, d)
+    t = x - queries[:, None].float()
+    d = t.shape[-1]
+    sq = torch.nn.functional.pad(t * t, (0, -d % 32))  # + 0.0 changes no sum
+    chunks = sq.unflatten(-1, (-1, 32))  # (Q, C, d / 32, 32)
+    part = chunks[..., 0]
+    for i in range(1, 32):
+        part = part + chunks[..., i]
+    total = part[..., 0]
+    for c in range(1, part.shape[-1]):
+        total = total + part[..., c]
+    return total
+
+
+def _extend_one(db, graph, queries, state_q, p: int):
+    """One extend step for every query (the reference's ``_extend_one``
+    vmapped). state_q: (top_ids, top_dists, expanded, visited), each with a
+    leading query dim. Returns (new state_q, did_work (Q,) bool)."""
+    top_ids, top_dists, expanded, visited = state_q
+    Q = top_ids.shape[0]
+    # pick <= p best unexpanded parents, ties to the lower index
+    cand_rank = torch.where(expanded | (top_ids < 0), INF, top_dists)
+    best, parent_ix = smallest_k(cand_rank, p)  # (Q, p)
+    parent_ok = best < INF
+    parents = torch.where(parent_ok, top_ids.gather(1, parent_ix), -1)
+    expanded = expanded.scatter(1, parent_ix,
+                                expanded.gather(1, parent_ix) | parent_ok)
+    # gather neighbours, drop visited
+    nbrs = torch.where(parents[..., None] >= 0,
+                       graph[parents.long().clamp(min=0)], -1).reshape(Q, -1)
+    visited, seen = _hash_probe(visited, nbrs)
+    nbrs = torch.where(seen, -1, nbrs)
+    dist = torch.where(nbrs >= 0, _l2_to(db, nbrs, queries), INF)
+    top_ids, top_dists, expanded = _merge_topm(top_ids, top_dists, expanded,
+                                               nbrs, dist)
+    return (top_ids, top_dists, expanded, visited), parent_ok.any(1)
+
+
+def init_state(db, graph, queries, top_m: int, visited_slots: int,
+               num_entries: int = 8, seed: int = 0):
+    """Seed each query's topM with random entry points:
+    ``jax.random.randint(PRNGKey(seed), (Q, num_entries), 0, N)``, whose bits
+    are those of one flat draw of Q * num_entries."""
+    Q, N = queries.shape[0], db.shape[0]
+    dev = db.device
+    entries = prng.randint(prng.prng_key(seed)[None], Q * num_entries, 0, N)
+    entries = torch.as_tensor(entries.reshape(Q, num_entries), device=dev)
+    pad = top_m - num_entries
+    top_ids = torch.cat([entries, entries.new_full((Q, pad), -1)], dim=1)
+    top_dists = torch.cat([_l2_to(db, entries, queries),
+                           torch.full((Q, pad), INF, device=dev)], dim=1)
+    visited, _ = _hash_probe(entries.new_full((Q, visited_slots), -1), entries)
+    return SearchState(top_ids, top_dists,
+                       torch.zeros((Q, top_m), dtype=torch.bool, device=dev),
+                       visited, torch.zeros(Q, dtype=torch.bool, device=dev),
+                       torch.zeros(Q, dtype=torch.int32, device=dev))
+
+
+def search_batch(db, graph, queries, *, top_m: int = 32, p: int = 2,
+                 max_iters: int = 48, visited_slots: int = 512,
+                 num_entries: int = 8, device="cuda"):
+    """Per-request batched search: lockstep extends until ALL queries have
+    converged (a converged query's state is frozen) or ``max_iters``.
+
+    db (N, d), graph (N, D), queries (Q, d): arrays or tensors, moved to
+    ``device``. Returns (top_ids (Q, M), top_dists (Q, M), extends (Q,),
+    iters_run) with tensors on ``device`` and ``iters_run`` an int."""
+    dev = resolve_device(device)
+    db, graph, queries = (torch.as_tensor(a, device=dev)
+                          for a in (db, graph, queries))
+    state = init_state(db, graph, queries, top_m, visited_slots, num_entries)
+    it = 0
+    while it < max_iters and not bool(state.done.all()):
+        new, did = _extend_one(db, graph, queries, state[:4], p)
+        frozen = state.done[:, None]
+        tid, td, ex, vis = (torch.where(frozen, old, cur)
+                            for old, cur in zip(state[:4], new))
+        state = SearchState(tid, td, ex, vis, state.done | ~did,
+                            state.extends + (~state.done).int())
+        it += 1
+    return state.top_ids, state.top_dists, state.extends, it

@@ -1,7 +1,9 @@
 """``_hash_probe`` and ``_merge_topm`` of the port are bit-equal to the JAX
 package's (vmapped over slots), including hash-slot conflicts, duplicate
 candidates, and distance ties (``jax.lax.top_k`` breaks ties to the lower
-index; the port's stable sort must too)."""
+index; the port's stable sort must too); so are the per-request lockstep
+search's ``init_state``, ``_extend_one`` and ``search_batch`` (ids,
+distances, extends and iterations) at the pools' widths (64, 128)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -9,7 +11,11 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
+import jax.numpy as jnp  # noqa: E402
+
 from repro.vector import cagra as jcagra  # noqa: E402
+from repro.vector.dataset import make_dataset  # noqa: E402
+from repro.vector.graph import make_cagra_graph  # noqa: E402
 from repro_torch.vector import cagra as tcagra  # noqa: E402
 
 _j_probe = jax.jit(jax.vmap(jcagra._hash_probe))
@@ -113,3 +119,60 @@ def test_smallest_k_matches_lax_top_k(k):
     vals, tidx = tcagra.smallest_k(torch.from_numpy(x), k)
     np.testing.assert_array_equal(tidx.numpy(), np.asarray(idx))
     np.testing.assert_array_equal(vals.numpy(), -np.asarray(neg))
+
+
+@pytest.fixture(scope="module", params=[64, 128])
+def corpus(request):
+    """(db, graph, queries) numpy arrays at width 64 or 128."""
+    db, q = make_dataset(3000, request.param, seed=request.param,
+                         num_queries=48)
+    return db, np.asarray(make_cagra_graph(db, 16, seed=0)), q
+
+
+def test_init_state_bit_equal(corpus):
+    """Entry points from ``randint(PRNGKey(seed), (Q, E), 0, N)`` (one flat
+    draw through ``prng``), their distances and the visited tables."""
+    db, graph, q = corpus
+    for seed, E in ((0, 8), (5, 3)):
+        j = jcagra.init_state(jnp.asarray(db), jnp.asarray(graph),
+                              jnp.asarray(q), 32, 512, E, seed)
+        t = tcagra.init_state(torch.from_numpy(db), torch.from_numpy(graph),
+                              torch.from_numpy(q), 32, 512, E, seed)
+        for a, b in zip(t, j):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_extend_one_bit_equal(corpus):
+    """Three extend steps of every query from the same state."""
+    db, graph, q = corpus
+    J = [jnp.asarray(a) for a in (db, graph, q)]
+    T = [torch.from_numpy(a) for a in (db, graph, q)]
+    js = jcagra.init_state(*J, 32, 512)
+    ts = tcagra.init_state(*T, 32, 512)
+    jstate, tstate = tuple(js[:4]), tuple(ts[:4])
+    step = jax.jit(jax.vmap(lambda qq, *s: jcagra._extend_one(
+        J[0], J[1], qq, s, 2)))
+    for _ in range(3):
+        jstate, jdid = step(J[2], *jstate)
+        tstate, tdid = tcagra._extend_one(*T, tstate, 2)
+        for a, b in zip(tstate, jstate):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        np.testing.assert_array_equal(tdid.numpy(), np.asarray(jdid))
+
+
+@pytest.mark.parametrize("top_m,p,max_iters", [(32, 2, 48), (16, 1, 48),
+                                               (64, 4, 5)])
+def test_search_batch_bit_equal(corpus, top_m, p, max_iters):
+    """ids, distances, extends and iterations equal the JAX package's; a
+    converged query's lane is frozen, and max_iters cuts the lockstep."""
+    db, graph, q = corpus
+    j = jcagra.search_batch(jnp.asarray(db), jnp.asarray(graph), jnp.asarray(q),
+                            top_m=top_m, p=p, max_iters=max_iters,
+                            visited_slots=512)
+    t = tcagra.search_batch(db, graph, q, top_m=top_m, p=p,
+                            max_iters=max_iters, visited_slots=512,
+                            device="cpu")
+    for a, b in zip(t[:3], j[:3]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert t[3] == int(j[3]) <= max_iters
+    assert int(t[2].max()) == t[3]  # the slowest query holds the batch

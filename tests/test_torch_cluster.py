@@ -143,6 +143,20 @@ def test_monolithic_cluster_matches_jax(mono, placement, policy):
     assert_sims_equal(js, ts, t_end)
 
 
+@pytest.mark.parametrize("model", ["deepseek-moe-16b", "deepseek-v3-671b"])
+def test_deepseek_cluster_matches_jax(mono, model):
+    """The DeepSeek family priced by the port's analytic counts (MoE's
+    active experts, MLA's latent cache): the same cluster as the JAX
+    package's."""
+    js, ts = make_sims(*mono, POOL_KW, model=model)
+    t_end = workload(js) + 2.0
+    workload(ts)
+    for sim in (js, ts):
+        sim.run(t_end)
+    assert ts.metrics.summary(t_end)["requests"] == 8
+    assert_sims_equal(js, ts, t_end)
+
+
 @pytest.mark.parametrize("placement,policy",
                          [("disaggregated", "fifo_shared"),
                           ("coupled", "trinity"),

@@ -258,7 +258,8 @@ def _randn(shape, seed, dtype, dev):
     (2, 64, 64, 4, 1, 128, False), (1, 1000, 1000, 8, 2, 128, True),
     (2, 77, 77, 14, 2, 64, True), (1, 100, 300, 4, 4, 16, True),
     (1, 300, 100, 2, 1, 256, True), (4, 512, 512, 40, 10, 128, True),
-    (2, 200, 333, 8, 2, 64, False), (2, 333, 77, 8, 2, 128, False)])
+    (2, 200, 333, 8, 2, 64, False), (2, 333, 77, 8, 2, 128, False),
+    (4, 512, 512, 16, 16, 128, True)])  # deepseek-moe-16b's prefill
 def test_flash_attention_matches_plain(cuda, dtype, B, Sq, Sk, H, Hkv, hd,
                                        causal):
     from repro_torch.kernels import flash_attention, ops, ref
@@ -296,7 +297,8 @@ def test_flash_attention_reads_strided_views(cuda):
     (2, 256, 4, 2, 64, 100), (1, 512, 8, 1, 128, 511), (3, 128, 4, 4, 32, 0),
     (4, 544, 40, 10, 128, 0), (4, 544, 40, 10, 128, 271),
     (4, 544, 40, 10, 128, 543), (2, 300, 14, 2, 64, 299),
-    (1, 64, 1, 1, 256, 1000), (2, 40, 12, 1, 16, 17)])
+    (1, 64, 1, 1, 256, 1000), (2, 40, 12, 1, 16, 17),
+    (4, 544, 16, 16, 128, 0), (4, 544, 16, 16, 128, 543)])  # deepseek-moe-16b
 def test_decode_attention_matches_plain(cuda, dtype, B, S, H, Hkv, hd,
                                         cur_len):
     from repro_torch.kernels import decode_attention, ops, ref
@@ -361,6 +363,7 @@ def test_flash_wgmma_matches_plain(cuda, Sq, hd, g):
 
 @pytest.mark.parametrize("shape,variant", [
     ((4, 512, 40, 10, 128), "flash_wgmma"),      # phi3-medium-14b
+    ((4, 512, 16, 16, 128), "flash_wgmma"),      # deepseek-moe-16b
     ((4, 512, 16, 16, 256), "flash_wgmma256")])  # gemma-7b
 def test_flash_serving_shape_takes_wgmma(cuda, shape, variant):
     """A serving path's contiguous bf16 prefill call is counted as its
@@ -582,6 +585,150 @@ def test_real_server_on_card_matches_cpu(cuda):
     want, want_stats = cpu.generate(prompts, max_new=8)
     np.testing.assert_array_equal(toks, want)
     assert stats["rag_probes"] == want_stats["rag_probes"]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v3-671b"])
+def test_deepseek_server_on_card_matches_cpu(cuda, arch):
+    """The DeepSeek smoke servers (MoE; MLA with MTP) generate the CPU
+    server's tokens from the same weights (float32, TF32 off); the GQA one
+    launches B3 once a layer and B4 once a layer a step."""
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import VectorPoolConfig
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch.serve import RealServer
+
+    cfg = get_smoke_config(arch)
+    pool = VectorPoolConfig(num_vectors=1500, dim=64, max_requests=16,
+                            top_m=16, task_batch=512, visited_slots=256,
+                            top_k=5)
+    cpu = RealServer(cfg, pool, rag_interval=4, device="cpu")
+    card = RealServer(cfg, pool, rag_interval=4, device=cuda,
+                      params=convert.lm_params_from_numpy(
+                          cfg, convert.lm_params_to_numpy(cpu.params), cuda))
+    prompts = np.random.default_rng(0).integers(
+        0, 500, size=(2, 16)).astype(np.int32)
+    f0 = flash_attention.launches["flash_attention"]
+    d0 = decode_attention.launches["decode_attention"]
+    toks, _ = card.generate(prompts, max_new=8)
+    gqa = cfg.attn_kind == "gqa"
+    assert flash_attention.launches["flash_attention"] - f0 == \
+        cfg.num_layers * gqa
+    assert decode_attention.launches["decode_attention"] - d0 == \
+        cfg.num_layers * (16 + 8) * gqa
+    want, _ = cpu.generate(prompts, max_new=8)
+    np.testing.assert_array_equal(toks, want)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _moe_layer(arch, width):
+    """(cfg, float32 MoE params on the CPU) at the smoke config's size or at
+    deepseek-moe-16b's published width (d_model 2048, 64 experts of 1408,
+    top 6, 2 shared)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import moe
+
+    cfg = get_smoke_config(arch) if width == "smoke" else dataclasses.replace(
+        get_config(arch), dtype="float32")
+    return cfg, moe.init_moe(torch.Generator().manual_seed(0), cfg,
+                             torch.float32)
+
+
+@pytest.mark.parametrize("T", [4, 64, 2048])
+@pytest.mark.parametrize("arch,width", [("deepseek-moe-16b", "smoke"),
+                                        ("deepseek-v3-671b", "smoke"),
+                                        ("deepseek-moe-16b", "published")])
+def test_moe_forward_on_card_matches_cpu(cuda, arch, width, T):
+    """moe_forward on the card: the CPU's output and aux loss within 1e-4
+    (float32 sums in another order), capacity drops included, and a rerun
+    bit-equal (the combine uses no atomics)."""
+    from repro_torch.models import moe
+
+    cfg, cpu_p = _moe_layer(arch, width)
+    card_p = _to(cpu_p, cuda)
+    x = _randn((T, cfg.d_model), 20, torch.float32, "cpu")
+    out, aux = moe.moe_forward(card_p, x.to(cuda), cfg)
+    again, _ = moe.moe_forward(card_p, x.to(cuda), cfg)
+    want, want_aux = moe.moe_forward(cpu_p, x, cfg)
+    torch.cuda.synchronize()
+    assert out.device.type == "cuda" and torch.equal(out, again)
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-4, atol=1e-4)
+
+
+def test_moe_combine_repeats_bitwise_in_bfloat16(cuda):
+    """The bf16 MoE at deepseek-moe-16b's width and prefill size (4 x 512
+    tokens, capacity 240): two runs give the same bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("deepseek-moe-16b")
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    params = moe.init_moe(gen, cfg, torch.bfloat16)
+    x = _randn((2048, cfg.d_model), 21, torch.bfloat16, cuda)
+    runs = [moe.moe_forward(params, x, cfg)[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("width", ["smoke", "published"])
+def test_mla_on_card_matches_cpu(cuda, width):
+    """mla_forward and 8 absorbed decode steps on the card against the CPU
+    (float32, 1e-4), at deepseek-v3's smoke size and its published MLA
+    widths (d_model 7168, 128 heads, q/kv ranks 1536/512, qk 192, v 128)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import mla
+
+    arch = "deepseek-v3-671b"
+    cfg = get_smoke_config(arch) if width == "smoke" else dataclasses.replace(
+        get_config(arch), dtype="float32")
+    gen = torch.Generator().manual_seed(2)
+    cpu_p = mla.init_mla(gen, cfg, torch.float32)
+    card_p = _to(cpu_p, cuda)
+    x = _randn((2, 16, cfg.d_model), 22, torch.float32, "cpu")
+    out, cache = mla.mla_forward(card_p, x.to(cuda), cfg)
+    want, want_cache = mla.mla_forward(cpu_p, x, cfg)
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)
+    for name in cache:
+        torch.testing.assert_close(cache[name].cpu(), want_cache[name],
+                                   rtol=1e-4, atol=1e-4)
+    tc = mla.init_mla_cache(cfg, 2, 8, torch.float32, cuda)
+    cc = mla.init_mla_cache(cfg, 2, 8, torch.float32, "cpu")
+    for i in range(9):  # the 9th step lies past the cache: writes nothing
+        step_out, _ = mla.mla_decode_step(card_p, x[:, i:i + 1].to(cuda), tc,
+                                          i, cfg)
+        step_want, _ = mla.mla_decode_step(cpu_p, x[:, i:i + 1], cc, i, cfg)
+        torch.testing.assert_close(step_out.cpu(), step_want, rtol=1e-4,
+                                   atol=1e-4)
+    for name in tc:
+        torch.testing.assert_close(tc[name].cpu(), cc[name], rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_search_batch_on_card_matches_cpu(cuda):
+    """CAGRA's per-request lockstep search on the card: the CPU's ids,
+    distances, extends and iterations, bit for bit (the same sums in the
+    same order)."""
+    from repro_torch.vector.cagra import search_batch
+    from repro_torch.vector.dataset import make_dataset
+    from repro_torch.vector.graph import make_cagra_graph
+
+    db, q = make_dataset(4000, 64, seed=3, num_queries=64)
+    graph = make_cagra_graph(db, 16, seed=0, device="cpu")
+    card = search_batch(db, graph, q, device=cuda)
+    cpu = search_batch(db, graph, q, device="cpu")
+    assert card[3] == cpu[3]
+    for a, b in zip(card[:3], cpu[:3]):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
 
 
 # ---------------------------------------------------------------------------

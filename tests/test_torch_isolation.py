@@ -76,6 +76,7 @@ def test_cuda_requested_without_card_raises(monkeypatch):
     from repro_torch.device import resolve_device
     from repro_torch.vector.graph import build_knn_graph_exact, make_cagra_graph
     from repro_torch.vector.online import OnlineIndex
+    from repro_torch.vector.cagra import search_batch
     from repro_torch.vector.ref import exact_knn
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.serve import RealServer
@@ -104,7 +105,12 @@ def test_cuda_requested_without_card_raises(monkeypatch):
              lambda: make_cagra_graph(db, 4),
              lambda: make_cagra_graph(db, 4, device="cuda"),
              lambda: make_cagra_graph(db, 4, exact_threshold=8),
+             lambda: search_batch(db, graph, db[:2]),
              lambda: model_zoo.init_params(get_smoke_config("gemma-7b")),
+             lambda: model_zoo.init_params(
+                 get_smoke_config("deepseek-v3-671b")),
+             lambda: model_zoo.init_decode_caches(
+                 get_smoke_config("deepseek-v3-671b"), 1, 4),
              lambda: model_zoo.init_decode_caches(
                  get_smoke_config("gemma-7b"), 1, 4),
              lambda: convert.lm_params_from_numpy(
@@ -149,13 +155,16 @@ def test_model_config_classes_equal_to_jax(name):
 
 @pytest.mark.parametrize("arch", tconfigs.list_archs())
 def test_arch_configs_equal_to_jax(arch):
-    """The five dense archs' published and smoke configs equal the JAX
-    package's field for field, with the same derived numbers."""
+    """Every ported arch's published and smoke configs equal the JAX
+    package's field for field, with the same derived numbers (the analytic
+    counts, MoE and MLA included)."""
     for get in ("get_config", "get_smoke_config"):
         j, t = getattr(jconfigs, get)(arch), getattr(tconfigs, get)(arch)
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
-        assert (j.resolved_head_dim, j.q_heads_per_kv, j.param_count()) == \
-            (t.resolved_head_dim, t.q_heads_per_kv, t.param_count())
+        assert (j.resolved_head_dim, j.q_heads_per_kv, j.param_count(),
+                j.active_param_count()) == \
+            (t.resolved_head_dim, t.q_heads_per_kv, t.param_count(),
+             t.active_param_count())
 
 
 def test_unported_archs_raise_naming_their_roadmap_item():

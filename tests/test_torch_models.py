@@ -1,9 +1,11 @@
-"""The port's dense models against the JAX package on the CPU: layers,
+"""The port's models against the JAX package on the CPU: layers,
 attention, the transformer stack and the model zoo on the smoke configs of
-the five dense GQA archs, with the JAX parameters carried across by
+every ported arch (the five dense GQA archs and the DeepSeek family: MoE,
+MLA, MTP), with the JAX parameters carried across by
 ``convert.lm_params_from_numpy``. Float32 throughout; 1e-5 where the two
 compute the same sums (matmuls in another order on the two frameworks'
-CPU backends), looser where stated."""
+CPU backends), looser where stated. A layer's cache is {"k", "v"} (GQA) or
+{"ckv", "kr"} (MLA)."""
 import dataclasses
 
 import pytest
@@ -127,7 +129,8 @@ def test_prefill_matches_jax(arch, models):
     np.testing.assert_allclose(tl.numpy(), _np(jl), **TOL)
     assert len(tc) == cfg.num_layers
     for i, c in enumerate(tc):
-        for name in ("k", "v"):
+        assert set(c) == set(jc["l0"])
+        for name in c:
             np.testing.assert_allclose(c[name].numpy(),
                                        _np(jc["l0"][name][i]), **TOL)
 
@@ -147,7 +150,8 @@ def test_decode_steps_match_jax(arch, models):
         tl, tc = model_zoo.decode_fn(cfg, tp, _t(toks[:, i:i + 1]), tc, i)
         np.testing.assert_allclose(tl.numpy(), _np(jl), **TOL)
     for i, c in enumerate(tc):
-        for name in ("k", "v"):
+        assert set(c) == set(jc["l0"])
+        for name in c:
             np.testing.assert_allclose(c[name].numpy(),
                                        _np(jc["l0"][name][i]), **TOL)
 
@@ -157,19 +161,27 @@ def test_decode_steps_match_jax(arch, models):
 def test_decode_matches_teacher_forced_prefill(arch, models):
     """The port's own PD contract: the prompt fed token by token through
     decode gives prefill's last logits, and the decode cache holds
-    prefill's k/v (the JAX package's
+    prefill's k/v (ckv/kr under MLA) (the JAX package's
     test_decode_matches_teacher_forced_forward; 1e-4 as sums run in
-    another order)."""
+    another order). Under MoE this holds only where capacity drops no
+    token at prefill: the smoke configs' capacity_factor 4.0 drops none
+    (asserted), decode never drops (capacity >= 8 slots for B tokens)."""
     cfg, _, tp = models[arch]
     toks = _t(_batch(cfg, seed=2)["tokens"])
+    if cfg.mlp_kind == "moe":
+        from repro_torch.models import moe
+
+        assert moe.capacity_for(B * S, cfg) >= B * S  # no expert can overflow
     ref, pc = model_zoo.prefill_fn(cfg, tp, {"tokens": toks})
     caches = model_zoo.init_decode_caches(cfg, B, S + 4, device="cpu")
     for i in range(S):
         lg, caches = model_zoo.decode_fn(cfg, tp, toks[:, i:i + 1], caches, i)
     torch.testing.assert_close(lg, ref, rtol=1e-4, atol=1e-4)
     for c, p in zip(caches, pc):
-        torch.testing.assert_close(c["k"][:, :S], p["k"], rtol=1e-4, atol=1e-4)
-        assert not c["k"][:, S:].any()
+        for name in c:
+            torch.testing.assert_close(c[name][:, :S], p[name], rtol=1e-4,
+                                       atol=1e-4)
+            assert not c[name][:, S:].any()
 
 
 def test_decode_past_the_cache_writes_nothing(models):
@@ -184,6 +196,27 @@ def test_decode_past_the_cache_writes_nothing(models):
     lg, _ = model_zoo.decode_fn(cfg, tp, tok, caches, 4)
     assert all(torch.equal(b, c["k"]) for b, c in zip(before, caches))
     assert torch.isfinite(lg).all()
+
+
+def test_mla_model_decode_past_the_cache_matches_jax(models):
+    """The same at the model level under MLA and MoE (deepseek-v3's smoke
+    config), each step's logits equal to the JAX package's."""
+    arch = "deepseek-v3-671b"
+    cfg, jp, tp = models[arch]
+    jcfg = j_smoke(arch)
+    jc = j_zoo.init_decode_caches(jcfg, B, 4)
+    caches = model_zoo.init_decode_caches(cfg, B, 4, device="cpu")
+    toks = _batch(cfg, seed=6)["tokens"]
+    for i in range(5):
+        if i == 4:
+            before = [{k: v.clone() for k, v in c.items()} for c in caches]
+        jl, jc = j_zoo.decode_fn(jcfg, jp, jnp.asarray(toks[:, i:i + 1]), jc,
+                                 jnp.int32(i))
+        tl, caches = model_zoo.decode_fn(cfg, tp, _t(toks[:, i:i + 1]),
+                                         caches, i)
+        np.testing.assert_allclose(tl.numpy(), _np(jl), **TOL)
+    assert all(torch.equal(b[k], c[k]) for b, c in zip(before, caches)
+               for k in c)
 
 
 # gemma-7b's structure at its head dim: GeGLU, tied embeddings, as many kv
@@ -249,9 +282,22 @@ def test_gemma_hd256_greedy_decode_matches_jax(gemma_hd256):
 # ---------------------------------------------------------------------------
 
 
+def _counted_weights(tree, name=""):
+    """Weights the analytic count covers: every leaf but norms and
+    biases."""
+    if isinstance(tree, dict):
+        return sum(_counted_weights(v, k) for k, v in tree.items())
+    if isinstance(tree, list):
+        return sum(_counted_weights(v) for v in tree)
+    if name.endswith("norm") or name in ("ln1", "ln2", "bq", "bk", "bv"):
+        return 0
+    return tree.numel()
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_round_trip_and_count(arch, models):
-    """lm_params_from_numpy carries every leaf bit for bit, its inverse
+    """lm_params_from_numpy carries every leaf bit for bit (the MoE's
+    stacked experts and the unstacked ``mtp`` subtree too), its inverse
     gives the JAX layout back, and the analytic count equals the JAX
     package's and the real number of weights (norms and biases aside)."""
     cfg, jp, tp = models[arch]
@@ -265,14 +311,12 @@ def test_param_tree_round_trip_and_count(arch, models):
         np.testing.assert_array_equal(flat_b[k], flat_j[k], err_msg=k)
     n = model_zoo.analytic_param_count(cfg)
     assert n == j_zoo.analytic_param_count(j_smoke(arch))
-    assert cfg.param_count() == n == cfg.active_param_count()
-    counted = sum(v.numel() for k, v in
-                  [("embed", tp["embed"])] + [("lm_head", tp.get("lm_head"))]
-                  if v is not None)
-    counted += sum(w.numel() for blk in tp["blocks"]
-                   for part in ("attn", "mlp") for name, w in blk[part].items()
-                   if not name.startswith("b"))
-    assert counted == n
+    active = model_zoo.analytic_param_count(cfg, active_only=True)
+    assert active == j_zoo.analytic_param_count(j_smoke(arch), active_only=True)
+    assert cfg.param_count() == n and cfg.active_param_count() == active
+    assert (active < n) == (cfg.mlp_kind == "moe")
+    assert ("mtp" in tp) == (cfg.mtp_depth > 0)
+    assert _counted_weights(tp) == n
 
 
 def test_bfloat16_params_convert_exactly():
@@ -286,10 +330,71 @@ def test_bfloat16_params_convert_exactly():
                        tp["blocks"][1]["mlp"]["wo"])
 
 
-@pytest.mark.parametrize("change", [
-    dict(block_kind="mamba_attn", attn_every=2), dict(attn_kind="mla"),
-    dict(mlp_kind="moe"), dict(block_kind="xlstm"),
-    dict(block_kind="encdec", encoder_layers=1), dict(mtp_depth=1)])
+def _dtypes(tree, path=""):
+    """{leaf path: dtype} of a port parameter tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {path: tree.dtype}
+    return {p: d for k, v in items for p, d in _dtypes(v, f"{path}/{k}").items()}
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v3-671b"])
+def test_bfloat16_moe_tree_converts_exactly(arch):
+    """A bfloat16 DeepSeek tree from the JAX package (its router float32)
+    converts bit for bit, each leaf in the dtype the port's
+    ``init_lm_params`` gives it (the router float32, the rest bfloat16;
+    ``mtp`` included), and back."""
+    jcfg = dataclasses.replace(j_smoke(arch), dtype="bfloat16")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16")
+    jp = jax.device_get(j_zoo.init_params(jcfg, jax.random.PRNGKey(2)))
+    assert jp["blocks"]["l0"]["mlp"]["router"].dtype == np.float32
+    tp = convert.lm_params_from_numpy(cfg, jp, device="cpu")
+    assert _dtypes(tp) == _dtypes(model_zoo.init_params(cfg, device="cpu"))
+    assert tp["blocks"][0]["mlp"]["router"].dtype == torch.float32
+    if cfg.mtp_depth:
+        assert tp["mtp"]["block"]["mlp"]["router"].dtype == torch.float32
+        assert tp["mtp"]["proj"].dtype == torch.bfloat16
+    flat_j = {jax.tree_util.keystr(k): np.asarray(v, np.float32) for k, v in
+              jax.tree_util.tree_flatten_with_path(jp)[0]}
+    flat_b = {jax.tree_util.keystr(k): v for k, v in
+              jax.tree_util.tree_flatten_with_path(
+                  convert.lm_params_to_numpy(tp))[0]}
+    assert flat_j.keys() == flat_b.keys()
+    for k in flat_j:
+        np.testing.assert_array_equal(flat_b[k], flat_j[k], err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v3-671b"])
+def test_published_counts_and_flops_equal_jax(arch):
+    """The published configs' parameter counts (all and active) and
+    MODEL_FLOPS at every shape equal the JAX package's."""
+    from repro.configs import get_config as j_full
+    from repro.configs.base import SHAPES as J_SHAPES
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+
+    cfg, jcfg = get_config(arch), j_full(arch)
+    want = {"deepseek-moe-16b": (16_879_452_160, 2_830_630_912),
+            "deepseek-v3-671b": (715_432_525_824, 38_270_533_632)}[arch]
+    got = (model_zoo.analytic_param_count(cfg),
+           model_zoo.analytic_param_count(cfg, active_only=True))
+    assert got == want == (j_zoo.analytic_param_count(jcfg),
+                           j_zoo.analytic_param_count(jcfg, active_only=True))
+    for name in SHAPES:
+        assert model_zoo.model_flops(cfg, SHAPES[name]) == \
+            j_zoo.model_flops(jcfg, J_SHAPES[name])
+    cut = dataclasses.replace(cfg, num_layers=1)
+    assert model_zoo.analytic_param_count(cut) == j_zoo.analytic_param_count(
+        dataclasses.replace(jcfg, num_layers=1))
+
+
+@pytest.mark.parametrize("change", [  # ids as before the MLA/MoE/MTP cases went
+    pytest.param(dict(block_kind="mamba_attn", attn_every=2), id="change0"),
+    pytest.param(dict(block_kind="xlstm"), id="change3"),
+    pytest.param(dict(block_kind="encdec", encoder_layers=1), id="change4")])
 def test_unported_families_raise(change):
     cfg = dataclasses.replace(get_smoke_config("phi3-medium-14b"), **change)
     for call in (lambda: model_zoo.init_params(cfg, device="cpu"),

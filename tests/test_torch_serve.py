@@ -1,8 +1,8 @@
 """The port's ``RealServer`` on the CPU against the JAX package's: the
-qwen1.5-32b smoke model (QKV bias) with ``tests/test_system.py``'s pool,
-the JAX weights carried across by ``convert.lm_params_from_numpy``. Greedy
-tokens are equal, the pool serves the same probes, and generation is
-deterministic."""
+qwen1.5-32b smoke model (QKV bias) and both DeepSeek smoke models (MoE;
+MLA with MTP) with ``tests/test_system.py``'s pool, the JAX weights carried
+across by ``convert.lm_params_from_numpy``. Greedy tokens are equal, the
+pool serves the same probes, and generation is deterministic."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -79,3 +79,32 @@ def test_cli_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "generated tokens (first request):" in out
     assert "rag_probes" in out and "ttft_s" in out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v3-671b"])
+def test_deepseek_generate_matches_jax(arch):
+    """MoE (and MLA) served through RealServer: the same greedy tokens and
+    probes as the JAX package's server on the same weights, and the same
+    tokens again on a second call."""
+    jserver = JServer(j_smoke(arch), JPoolConfig(**POOL), rag_interval=4)
+    cfg = get_smoke_config(arch)
+    params = convert.lm_params_from_numpy(
+        cfg, jax.device_get(jserver.params), device="cpu")
+    tserver = serve.RealServer(cfg, VectorPoolConfig(**POOL), rag_interval=4,
+                               device="cpu", params=params)
+    prompts = np.random.default_rng(3).integers(
+        0, 500, size=(2, 12)).astype(np.int32)
+    jt, js = jserver.generate(prompts, max_new=6)
+    tt, ts = tserver.generate(prompts, max_new=6)
+    np.testing.assert_array_equal(tt, jt)
+    assert (ts["rag_probes"], ts["stalls"]) == (js["rag_probes"], js["stalls"])
+    again, _ = tserver.generate(prompts, max_new=6)
+    np.testing.assert_array_equal(again, tt)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v3-671b"])
+def test_cli_serves_deepseek_on_cpu(arch, capsys):
+    serve.main(["--arch", arch, "--device", "cpu", "--requests", "1",
+                "--prompt-len", "16", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "generated tokens (first request):" in out and "ttft_s" in out

@@ -1,7 +1,7 @@
 """The port's serving building blocks against the JAX package's, exactly:
 ``request`` (``ClusterMetrics`` and its rolling windows, ``RollingWindow``,
 ``slo_good``, ``percentile``), ``kv_link``, ``kv_cache``
-(``PagedKVManager``, ``kv_bytes_per_token`` on the five dense configs and
+(``PagedKVManager``, ``kv_bytes_per_token`` on every ported config and
 ``pad_prefill_caches`` on the prefill→decode handoff of
 ``test_ivf_and_handoff.py``), the prefill and decode instances of
 ``engine``, every function of the roofline model, ``make_placements``, and
@@ -90,7 +90,8 @@ def test_roofline_functions_equal_jax():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_model_prices_equal_jax(arch):
     """prefill_time, decode_step_time and model_step_times price each
-    dense config at its published widths as the JAX package does."""
+    ported config at its published widths (MoE and MLA included) as the
+    JAX package does."""
     j, t = _cfgs(arch)
     for tokens, chips in ((512, 8), (4096, 1)):
         assert troof.prefill_time(t, tokens, chips) == \

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the port's serving path spends its time on the card: the model of
-a serving cell (``chip_smoke.py`` phase 7, phi3-medium-14b, or phase 9,
-gemma-7b: full width, bf16, random weights from seed 0, 4 requests of 512
+a serving cell (``chip_smoke.py`` phase 7, phi3-medium-14b; phase 9,
+gemma-7b; phase 12, deepseek-moe-16b; phase 13, deepseek-v3-671b cut to
+depth 1: full width, bf16, random weights from seed 0, 4 requests of 512
 prompt tokens).
 
     python3 tools/profile_torch_serve.py                   # phi3-serve, one NVIDIA GPU
     python3 tools/profile_torch_serve.py --arch gemma-7b   # gemma-serve
+    python3 tools/profile_torch_serve.py --arch deepseek-moe-16b  # deepseek-moe-serve
+    python3 tools/profile_torch_serve.py --arch deepseek-v3-671b  # deepseek-v3-L1-serve
 
 For one prefill (4 x 512 tokens) and for decode steps at cur_len 512 and
 on (the decode loop's new tokens) it prints the host wall per call,
@@ -72,9 +75,12 @@ def report(name, wall_ms, prof):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="phi3-medium-14b",
-                    choices=["phi3-medium-14b", "gemma-7b"],
+                    choices=["phi3-medium-14b", "gemma-7b", "deepseek-moe-16b",
+                             "deepseek-v3-671b"],
                     help="the serving cell's model")
     args = ap.parse_args()
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -84,6 +90,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: CUDA is not available")
     cfg = get_config(args.arch)
+    if args.arch == "deepseek-v3-671b":  # two layers would not fit in bf16
+        cfg = dataclasses.replace(cfg, num_layers=1)
     params = model_zoo.init_params(cfg, seed=0, device="cuda")
     prompts = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(B, S)).astype(np.int32), device="cuda")
