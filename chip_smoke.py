@@ -39,10 +39,13 @@ line is printed only when every phase passed):
     and once through views of a fused projection whose row stride TMA
     cannot take; 16-over-16 heads at hd=32, S=2048, contiguous and through
     such a view; deepseek-moe-16b's 16-over-16 heads at hd=128, S=512,
-    bf16), each with the B3 variant it ran (flash_wgmma, flash_wgmma256,
-    flash_mma or flash_fp32), and decode (B=4, S_max=544, cur_len in {0,
-    271, 543}, garbage and NaN past cur_len; gemma-7b's 16/16 heads at
-    hd=256 and deepseek-moe-16b's 16/16 at hd=128, cur_len 543);
+    bf16; seamless-m4t's 16-over-16 heads at hd=64, causal, non-causal and
+    non-causal over Sk=300; jamba's 64-over-8 heads at hd=128), each with
+    the B3 variant it ran (flash_wgmma, flash_wgmma256, flash_mma or
+    flash_fp32), and decode (B=4, S_max=544, cur_len in {0, 271, 543},
+    garbage and NaN past cur_len; gemma-7b's 16/16 heads at hd=256,
+    deepseek-moe-16b's 16/16 at hd=128, seamless-m4t's 16/16 at hd=64 and
+    jamba's 64/8 at hd=128, cur_len 543);
     per-launch device time, the plain version's time, the time of torch's
     scaled_dot_product_attention on the same inputs (a yardstick only: the
     port never calls it) and the bound (bytes, operations or exps, each
@@ -111,6 +114,24 @@ line is printed only when every phase passed):
  15 CAGRA's per-request lockstep search (search_batch, A4) on phase 3's
     index and queries at the pool's top_m / parents_per_step: recall@10,
     extends and the iterations the batch held, beside phase 3's pool
+ 16 the serving path on xlstm-350m whole (24 layers in 3 groups of 7 mLSTM
+    + 1 sLSTM, d_model 1024, bf16, random weights from seed 0), phase 7's
+    pool and traffic: every logit finite, B1 on its probes and no B3/B4
+    launch (the recurrences are torch ops), the weights equal to the
+    analytic count, peak memory, kernels a decode step
+ 17 the same on seamless-m4t-large-v2 whole (12 encoder + 12 decoder
+    layers, 16/16 heads at hd 64, vocab 256,206 padded to 258,048, bf16,
+    the stub frames in bf16): 36 prefill launches of B3 on flash_wgmma
+    (encoder, decoder, cross-attention), B4 12 x 544
+ 18 the same on jamba-1.5-large-398b at its published widths cut to one
+    group of 8 layers (7 mamba + 1 attention, 64/8 heads at hd 128) and 8
+    of its 16 experts (top-2 kept; 25,910,362,112 parameters): 1 B3 launch
+    on flash_wgmma, B4 544, 4 MoE layers with the pairs capacity drops
+ 19 the three families on the card and on the CPU through RealServer:
+    xlstm-350m's widths cut to 8 layers, seamless-m4t's to 1 + 1 layers,
+    jamba's smoke config, float32 (equal tokens, close logits); one jamba
+    mamba layer and one xLSTM mLSTM + sLSTM pair at published widths,
+    forward and 8 decode steps
 
 The pool's and the cluster's clocks are simulated and priced by the JAX
 package's V5E model; phase 11 prints its simulated TTFT and TPOT labelled
@@ -514,11 +535,11 @@ def exp_rate():
     return EXP_PER_CLOCK_SM * sms * float(mhz) * 1e6
 
 
-def prefill_inputs(B, S, H, Hkv, hd, dtype, view, seed):
-    """q (B, S, H, hd) and k, v (B, S, Hkv, hd) on the card, from seeds
-    seed .. seed + 2: contiguous, or (``view``) three views of one fused
-    projection whose row stride, (H + 2 Hkv) hd + 4 elements, is no
-    multiple of 8, which TMA cannot take."""
+def prefill_inputs(B, S, H, Hkv, hd, dtype, view, seed, Sk=None):
+    """q (B, S, H, hd) and k, v (B, Sk, Hkv, hd) (Sk = S unless given) on
+    the card, from seeds seed .. seed + 2: contiguous, or (``view``) three
+    views of one fused projection whose row stride, (H + 2 Hkv) hd + 4
+    elements, is no multiple of 8, which TMA cannot take."""
     import torch
 
     def randn(shape, sd):
@@ -526,8 +547,9 @@ def prefill_inputs(B, S, H, Hkv, hd, dtype, view, seed):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     if not view:
-        return (randn((B, S, H, hd), seed), randn((B, S, Hkv, hd), seed + 1),
-                randn((B, S, Hkv, hd), seed + 2))
+        Sk = Sk or S
+        return (randn((B, S, H, hd), seed), randn((B, Sk, Hkv, hd), seed + 1),
+                randn((B, Sk, Hkv, hd), seed + 2))
     width = (H + 2 * Hkv) * hd
     heads = randn((B, S, width + 4), seed)[..., :width].unflatten(-1, (H + 2 * Hkv, hd))
     return heads[:, :, :H], heads[:, :, H:H + Hkv], heads[:, :, H + Hkv:]
@@ -587,15 +609,26 @@ def phase_attention():
                     for view in (False, True)]
     flash_cases.append((4, 512, 14, 2, 64, torch.float32, False))
     flash_cases.append((4, 512, 16, 16, 128, torch.bfloat16, False))  # deepseek-moe-16b
-    for i, (B, S, H, Hkv, hd, dt, view) in enumerate(flash_cases):
-        q, k, v = prefill_inputs(B, S, H, Hkv, hd, dt, view, 3 * i)
-        label = (B, S, H, Hkv, hd, dt) + (("view",) if view else ())
+    # every case so far is causal over Sk = S; then seamless-m4t's decoder
+    # (causal), encoder and cross-attention (not causal; the server's
+    # cross-attention has Sk = S, Sk = 300 shows Sq != Sk) at hd 64, g 1,
+    # and jamba's attention at hd 128, g 8 (an entry: B, S, H, Hkv, hd,
+    # dtype, view, causal, Sk)
+    flash_cases = [c + (True, c[1]) for c in flash_cases]
+    bf = torch.bfloat16
+    flash_cases += [(4, 512, 16, 16, 64, bf, False, causal, Sk)
+                    for causal, Sk in ((True, 512), (False, 512), (False, 300))]
+    flash_cases.append((4, 512, 64, 8, 128, bf, False, True, 512))
+    for i, (B, S, H, Hkv, hd, dt, view, causal, Sk) in enumerate(flash_cases):
+        q, k, v = prefill_inputs(B, S, H, Hkv, hd, dt, view, 3 * i, Sk)
+        label = (B, S, H, Hkv, hd, dt) + (("view",) if view else ()) + (
+            () if causal else ("non-causal", Sk))
         before = dict(flash_attention.launches)
-        out = flash_attention.flash_attention(q, k, v, causal=True)
-        again = flash_attention.flash_attention(q, k, v, causal=True)
+        out = flash_attention.flash_attention(q, k, v, causal=causal)
+        again = flash_attention.flash_attention(q, k, v, causal=causal)
         ran = [n for n in flash_attention.VARIANTS
                if flash_attention.launches[n] > before[n]]
-        want = ref.mha_ref(q, k, v, causal=True)
+        want = ref.mha_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         check(len(ran) == 1 and ran[0] == flash_attention.variant_of(q, k, v),
               f"flash_attention {label} ran {ran}")
@@ -604,29 +637,34 @@ def phase_attention():
                   f"above {tol[dt]}")
         check(torch.equal(out, again), f"flash_attention {label}: two runs differ")
 
-        def sdpa(q, k, v):
+        def sdpa(q, k, v, causal=causal):
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True)
+                is_causal=causal, enable_gqa=True)
 
         lib_err = (sdpa(q, k, v).transpose(1, 2).float()
                    - want.float()).abs().max().item()
         args = [(q, k, v)]
         n = 10 if S > 1000 else 40
-        ms = device_ms(lambda *a: flash_attention.flash_attention(*a), args, n)[0]
-        plain_ms = device_ms(lambda *a: ref.mha_ref(*a), args, n)[0]
+        ms = device_ms(lambda *a, c=causal: flash_attention.flash_attention(
+            *a, causal=c), args, n)[0]
+        plain_ms = device_ms(lambda *a, c=causal: ref.mha_ref(*a, causal=c),
+                             args, n)[0]
         lib_ms = device_ms(sdpa, args, n)[0]
         elt = q.element_size()
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
-        flops = 4 * B * H * hd * S * (S + 1) // 2  # causal: row i sees i+1 keys
-        n_exp = B * H * S * (S + 1) // 2
+        # causal (Sk = S): row i sees i + 1 keys; else every row all Sk
+        pairs = S * (S + 1) // 2 if causal else S * Sk
+        flops = 4 * B * H * hd * pairs
+        n_exp = B * H * pairs
         bound, by = attention_bound(nbytes, flops, n_exp, rate_exp, dt)
         extra = ({"bound_fp32_cores_ms": flops / FP32_FLOPS * 1e3}
                  if dt == torch.float32 else {})
         res["flash_attention"]["max_abs_err"] = max(
             res["flash_attention"]["max_abs_err"], err)
         res["flash_attention"]["cases"].append(dict(
-            shape=(B, S, H, Hkv, hd) + (("view",) if view else ()),
+            shape=(B, S, H, Hkv, hd) + (("view",) if view else ()) + (
+                () if causal else ("non-causal", Sk)),
             dtype=str(dt).split(".")[-1],
             variant=ran[0], max_abs_err=err, ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms, library_err=lib_err, bound_ms=bound,
@@ -634,13 +672,16 @@ def phase_attention():
         del q, k, v, out, again, want
     # ---- B4: decode attention over the serving caches (S_max = 512 + 32):
     # phi3's 40/10 heads at hd 128 (bf16 and f32, cur_len 0, 271, 543),
-    # then gemma-7b's 16/16 at hd 256 and deepseek-moe-16b's 16/16 at hd 128
-    # (bf16, the longest step)
+    # then gemma-7b's 16/16 at hd 256, deepseek-moe-16b's 16/16 at hd 128,
+    # seamless-m4t's 16/16 at hd 64 and jamba's 64/8 at hd 128 (bf16, the
+    # longest step)
     hold = 1_000_000_000  # ~0.5 s: covers the host's enqueue of 200 replays
     decode_cases = [((4, 544, 40, 10, 128), dt, (0, 271, 543))
                     for dt in (torch.bfloat16, torch.float32)]
     decode_cases.append(((4, 544, 16, 16, 256), torch.bfloat16, (543,)))
     decode_cases.append(((4, 544, 16, 16, 128), torch.bfloat16, (543,)))  # deepseek-moe-16b
+    decode_cases.append(((4, 544, 16, 16, 64), torch.bfloat16, (543,)))  # seamless-m4t
+    decode_cases.append(((4, 544, 64, 8, 128), torch.bfloat16, (543,)))  # jamba
     for j, ((B, S, H, Hkv, hd), dt, curs) in enumerate(decode_cases):
         q = randn((B, H, hd), 100 + j, dt)
         k = randn((B, S, Hkv, hd), 110 + j, dt)
@@ -736,14 +777,64 @@ def kernels_per_call(fn, n):
                for e in events) / n
 
 
-def phase_serve(arch, variant, num_layers=None):
-    """Phases 7, 9, 12 and 13: RealServer at ``arch``'s full width on the
-    card (``num_layers`` cuts its depth), 4 requests of 512 prompt tokens
-    and 32 new ones. Under GQA every prefill launch of B3 must be on
-    ``variant`` and B4 runs once a layer a decoded token; under MLA neither
-    runs (MLA is torch ops). Under MoE the (token, choice) pairs that
-    capacity drops at prefill are counted. Afterwards the kernels of one
-    decode step (cur_len 512 on) are counted under the profiler."""
+# leaves the analytic parameter count leaves out: norms, biases, the conv
+# biases (the JAX package's ``analytic_param_count``)
+UNCOUNTED = ("ln1", "ln2", "lnx", "bq", "bk", "bv", "conv_b", "b_if", "bias",
+             "dt_bias")
+
+
+def counted_weights(tree, name=""):
+    """The weights of a parameter tree that the analytic count covers."""
+    if isinstance(tree, dict):
+        return sum(counted_weights(v, k) for k, v in tree.items())
+    if isinstance(tree, list):
+        return sum(counted_weights(v) for v in tree)
+    if name.endswith("norm") or name in UNCOUNTED:
+        return 0
+    return tree.numel()
+
+
+def analytic_excess(cfg):
+    """What the JAX package's count adds beyond the weights its init makes:
+    its sLSTM term reads ``d * (4 * d) // 3 * 2`` as ((4d²) // 3) · 2, the
+    gated MLP being 2 · d · (4d // 3) (682 a sLSTM layer at d 1024)."""
+    if cfg.block_kind != "xlstm":
+        return 0
+    d = cfg.d_model
+    per = d * (4 * d) // 3 * 2 - 2 * d * ((4 * d) // 3)
+    n = cfg.xlstm_pattern.count("slstm") * (cfg.num_layers
+                                            // len(cfg.xlstm_pattern))
+    return per * n
+
+
+def serve_counts(cfg):
+    """(B3 launches a prefill, B4 launches a decoded token, MoE layers) of
+    ``cfg``'s stack: under GQA one B3 and one B4 an attention layer, under
+    encdec B3 also once an encoder layer and once a cross-attention (B4 only
+    on the decoder's self-attention); MLA and xLSTM launch neither."""
+    from repro_torch.models import transformer
+
+    if cfg.block_kind == "encdec":
+        n_dec = cfg.num_layers - cfg.encoder_layers
+        return cfg.encoder_layers + 2 * n_dec, n_dec, 0
+    kinds = transformer.group_layer_kinds(cfg)
+    n = transformer.num_groups(cfg)
+    attn = kinds.count("attn") * n if cfg.attn_kind == "gqa" else 0
+    moe_layers = n * sum(transformer._uses_moe(cfg, i)
+                         for i, k in enumerate(kinds) if k in ("attn", "mamba"))
+    return attn, attn, moe_layers
+
+
+def phase_serve(arch, variant, **cut):
+    """Phases 7, 9, 12, 13 and 16–18: RealServer at ``arch``'s full width on
+    the card (``cut`` replaces config fields: depth, experts), 4 requests of
+    512 prompt tokens and 32 new ones. B3 runs ``serve_counts``'s launches
+    a prefill, each on ``variant``, and B4 its launches a decoded token (the
+    prompt re-fed included). Under MoE the (token, choice) pairs that
+    capacity drops at prefill are counted, once a MoE layer. The weights
+    the analytic count covers equal it (``analytic_excess`` aside).
+    Afterwards the kernels of one decode step (cur_len 512 on) are counted
+    under the profiler."""
     import numpy as np
     import torch
 
@@ -753,9 +844,8 @@ def phase_serve(arch, variant, num_layers=None):
     from repro_torch.launch.serve import RealServer
     from repro_torch.models import model_zoo, moe
 
-    cfg = get_config(arch)
-    if num_layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    n_b3, n_b4, n_moe = serve_counts(cfg)
     B, S, NEW = 4, 512, 32
     t0 = time.perf_counter()
     server = RealServer(cfg, VectorPoolConfig(**SERVE_POOL), rag_interval=8,
@@ -763,6 +853,7 @@ def phase_serve(arch, variant, num_layers=None):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in leaves(server.params))
+    counted = counted_weights(server.params)
     finite = {"all": torch.ones((), dtype=torch.bool, device="cuda"),
               "steps": 0}
     dropped = {"pairs": torch.zeros((), dtype=torch.long, device="cuda"),
@@ -809,21 +900,20 @@ def phase_serve(arch, variant, num_layers=None):
           "a generated token is out of the vocabulary")
     check(bool(finite["all"].item()) and finite["steps"] == 1 + S + NEW,
           f"{arch}: non-finite logits (or {finite['steps']} model calls)")
-    if cfg.attn_kind == "gqa":
-        check(launches["flash_attention"] == cfg.num_layers
-              and launches[variant] == cfg.num_layers,
-              f"{arch}: flash_attention launched {launches['flash_attention']}"
-              f" times ({launches[variant]} on {variant}), not once per layer "
-              f"({cfg.num_layers}) on {variant}")
-        check(launches["decode_attention"] == cfg.num_layers * (S + NEW),
-              f"{arch}: decode_attention launched "
-              f"{launches['decode_attention']} times, not "
-              f"{cfg.num_layers * (S + NEW)}")
-    else:  # MLA attends through torch ops: no B3 or B4 launch
-        check(launches["flash_attention"] == launches["decode_attention"] == 0,
-              f"{arch}: MLA launched {launches}")
-    check(dropped["calls"] == (cfg.num_layers if cfg.mlp_kind == "moe" else 0),
-          f"{arch}: {dropped['calls']} MoE prefill calls")
+    check(launches["flash_attention"] == n_b3
+          and (n_b3 == 0 or launches[variant] == n_b3),
+          f"{arch}: flash_attention launched {launches['flash_attention']}"
+          f" times ({launches.get(variant)} on {variant}), not {n_b3} on "
+          f"{variant}")
+    check(launches["decode_attention"] == n_b4 * (S + NEW),
+          f"{arch}: decode_attention launched {launches['decode_attention']}"
+          f" times, not {n_b4 * (S + NEW)}")
+    check(dropped["calls"] == n_moe,
+          f"{arch}: {dropped['calls']} MoE prefill calls, not {n_moe}")
+    analytic = model_zoo.analytic_param_count(cfg)
+    check(counted + analytic_excess(cfg) == analytic,
+          f"{arch}: {counted} counted weights (+ {analytic_excess(cfg)}) != "
+          f"the analytic count {analytic}")
     check(launches["distance_slot_gather"] >= B,
           f"{arch}: distance_slot_gather launched "
           f"{launches['distance_slot_gather']} times on the serving path")
@@ -834,13 +924,11 @@ def phase_serve(arch, variant, num_layers=None):
     for _ in range(2):
         step()
     k_step = kernels_per_call(step, 4)
-    out = dict(cfg=cfg, init_s=init_s, params=n_params,
-               analytic=model_zoo.analytic_param_count(cfg), toks=toks,
-               stats=stats, launches=launches, peak_gib=peak_gib,
+    out = dict(cfg=cfg, init_s=init_s, params=n_params, analytic=analytic,
+               toks=toks, stats=stats, launches=launches, peak_gib=peak_gib,
                tok_per_s=B * NEW / stats["decode_s"], kernels_step=k_step,
                dropped=int(dropped["pairs"].item()),
-               routed=cfg.num_layers * B * S * cfg.moe.top_k
-               if cfg.mlp_kind == "moe" else 0)
+               routed=n_moe * B * S * cfg.moe.top_k if n_moe else 0)
     del server, prefill, decode, watched, caches, step
     gc.collect()  # the watched calls and the server refer to each other
     torch.cuda.empty_cache()
@@ -1350,20 +1438,37 @@ def phase_cluster(db, shards, device="cuda"):
     return out
 
 
-def phase_card_vs_cpu():
-    """Phase 8: one set of weights at phi3's widths (2 layers, float32)
-    through RealServer on the card and on the CPU."""
+def prefill_batch(cfg, prompts, device):
+    """RealServer's prefill batch: the prompts, and under encdec its stub
+    frames (ones x 0.1 in the model's dtype)."""
+    import torch
+
+    from repro_torch.models import model_zoo
+    from repro_torch.models.transformer import DTYPES
+
+    batch = {"tokens": torch.as_tensor(prompts, device=device)}
+    if model_zoo.is_encdec(cfg):
+        batch["frames"] = torch.ones(
+            prompts.shape + (cfg.d_model,), dtype=DTYPES[cfg.dtype],
+            device=device) * 0.1
+    return batch
+
+
+def servers_card_vs_cpu(name, cfg, n_new=8):
+    """RealServer on the CPU and on the card over one set of weights: 2
+    prompts of 32 tokens, ``n_new`` new. Tokens must be equal and the
+    prefill logits within atol = rtol = 1e-3 (float32 sums in other orders:
+    cuBLAS and the kernels against the CPU's BLAS). Returns the B3 launches
+    of the card's generate beside the timings."""
     import numpy as np
     import torch
 
     from repro_torch import convert
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import VectorPoolConfig
+    from repro_torch.kernels import flash_attention
     from repro_torch.launch.serve import RealServer
     from repro_torch.models import model_zoo
 
-    cfg = dataclasses.replace(get_config("phi3-medium-14b"), num_layers=2,
-                              dtype="float32")
     pool = VectorPoolConfig(**SERVE_POOL)
     t0 = time.perf_counter()
     cpu = RealServer(cfg, pool, rag_interval=8, seed=0, device="cpu")
@@ -1373,33 +1478,41 @@ def phase_card_vs_cpu():
     setup_s = time.perf_counter() - t0
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(2, 32)).astype(np.int32)
-    from repro_torch.kernels import flash_attention
-
     flash_attention.reset_launches()
     t0 = time.perf_counter()
-    toks_card, _ = card.generate(prompts, max_new=8)
+    toks_card, _ = card.generate(prompts, max_new=n_new)
     card_s = time.perf_counter() - t0
     launches = dict(flash_attention.launches)
-    check(launches["flash_fp32"] == cfg.num_layers,
-          f"f32 prefill ran {launches}, not flash_fp32 once per layer")
     t0 = time.perf_counter()
-    toks_cpu, _ = cpu.generate(prompts, max_new=8)
+    toks_cpu, _ = cpu.generate(prompts, max_new=n_new)
     cpu_s = time.perf_counter() - t0
     check(np.array_equal(toks_card, toks_cpu),
-          f"card tokens {toks_card.tolist()} != CPU tokens "
+          f"{name}: card tokens {toks_card.tolist()} != CPU tokens "
           f"{toks_cpu.tolist()}")
-    lg = {}
-    for name, server in (("card", card), ("cpu", cpu)):
-        batch = {"tokens": torch.as_tensor(prompts, device=server.device)}
-        lg[name] = model_zoo.prefill_fn(cfg, server.params, batch)[0].cpu()
-    # atol = rtol = 1e-3: float32 sums over up to 17920 terms in other
-    # orders (cuBLAS and the kernels vs the CPU's BLAS), through 2 layers
+    lg = {dev: model_zoo.prefill_fn(cfg, server.params, prefill_batch(
+              cfg, prompts, server.device))[0].cpu()
+          for dev, server in (("card", card), ("cpu", cpu))}
     err, ok = close(lg["card"], lg["cpu"], 1e-3)
-    check(ok, f"prefill logits card vs CPU differ by {err}")
+    check(ok, f"{name}: prefill logits card vs CPU differ by {err}")
     del card, cpu
+    gc.collect()
     torch.cuda.empty_cache()
     return dict(toks=toks_card, logit_err=err, setup_s=setup_s,
                 card_s=card_s, cpu_s=cpu_s, launches=launches)
+
+
+def phase_card_vs_cpu():
+    """Phase 8: one set of weights at phi3's widths (2 layers, float32)
+    through RealServer on the card and on the CPU; the card's prefill on
+    flash_fp32 once a layer."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("phi3-medium-14b"), num_layers=2,
+                              dtype="float32")
+    out = servers_card_vs_cpu("phi3 x 2 layers", cfg)
+    check(out["launches"]["flash_fp32"] == cfg.num_layers,
+          f"f32 prefill ran {out['launches']}, not flash_fp32 once per layer")
+    return out
 
 
 def phase_mla_attention():
@@ -1461,52 +1574,18 @@ def phase_deepseek_card_vs_cpu():
     layer of deepseek-v3's MLA at its published widths, float32: forward
     over 2 x 32 tokens and 8 absorbed decode steps, card against CPU
     (1e-3)."""
-    import numpy as np
     import torch
 
-    from repro_torch import convert
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.configs.base import VectorPoolConfig
-    from repro_torch.launch.serve import RealServer
-    from repro_torch.models import mla, model_zoo
+    from repro_torch.models import mla
 
-    pool = VectorPoolConfig(**SERVE_POOL)
     out = {}
     for name, cfg in (
             ("deepseek-moe-16b x 2 layers", dataclasses.replace(
                 get_config("deepseek-moe-16b"), num_layers=2,
                 dtype="float32")),
             ("deepseek-v3-671b smoke", get_smoke_config("deepseek-v3-671b"))):
-        t0 = time.perf_counter()
-        cpu = RealServer(cfg, pool, rag_interval=8, seed=0, device="cpu")
-        card = RealServer(cfg, pool, rag_interval=8, seed=0, device="cuda",
-                          params=convert.lm_params_from_numpy(
-                              cfg, convert.lm_params_to_numpy(cpu.params),
-                              "cuda"))
-        setup_s = time.perf_counter() - t0
-        prompts = np.random.default_rng(1).integers(
-            0, cfg.vocab_size, size=(2, 32)).astype(np.int32)
-        t0 = time.perf_counter()
-        toks_card, _ = card.generate(prompts, max_new=8)
-        card_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        toks_cpu, _ = cpu.generate(prompts, max_new=8)
-        cpu_s = time.perf_counter() - t0
-        check(np.array_equal(toks_card, toks_cpu),
-              f"{name}: card tokens {toks_card.tolist()} != CPU tokens "
-              f"{toks_cpu.tolist()}")
-        lg = {}
-        for dev, server in (("card", card), ("cpu", cpu)):
-            batch = {"tokens": torch.as_tensor(prompts, device=server.device)}
-            lg[dev] = model_zoo.prefill_fn(cfg, server.params, batch)[0].cpu()
-        # atol = rtol = 1e-3: float32 sums in other orders, as phase 8
-        err, ok = close(lg["card"], lg["cpu"], 1e-3)
-        check(ok, f"{name}: prefill logits card vs CPU differ by {err}")
-        out[name] = dict(toks=toks_card, logit_err=err, setup_s=setup_s,
-                         card_s=card_s, cpu_s=cpu_s)
-        del card, cpu
-        gc.collect()
-        torch.cuda.empty_cache()
+        out[name] = servers_card_vs_cpu(name, cfg)
 
     cfg = dataclasses.replace(get_config("deepseek-v3-671b"), dtype="float32")
     cpu_p = mla.init_mla(torch.Generator().manual_seed(0), cfg, torch.float32)
@@ -1528,6 +1607,73 @@ def phase_deepseek_card_vs_cpu():
           f"MLA layer card vs CPU: max errors {[e for e, _ in errs]}")
     out["mla_layer_err"] = max(e for e, _ in errs)
     del card_p, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_family_card_vs_cpu():
+    """Phase 19: xLSTM, the encoder-decoder and the mamba hybrid through
+    RealServer on the card and on the CPU, float32, one set of weights each:
+    xlstm-350m's widths cut to one group of 8 layers, seamless-m4t's cut to
+    one encoder and one decoder layer, jamba's smoke config (equal tokens,
+    prefill logits within 1e-3). Then one jamba mamba layer and one xLSTM
+    mLSTM + sLSTM pair at their published widths, float32: forward over
+    2 x 32 tokens and 8 decode steps, card against CPU (1e-3)."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import mamba, xlstm
+
+    out = {}
+    for name, cfg in (
+            ("xlstm-350m x 8 layers", dataclasses.replace(
+                get_config("xlstm-350m"), num_layers=8, dtype="float32")),
+            ("seamless-m4t-large-v2 x 1 + 1 layers", dataclasses.replace(
+                get_config("seamless-m4t-large-v2"), num_layers=2,
+                encoder_layers=1, dtype="float32")),
+            ("jamba-1.5-large-398b smoke",
+             get_smoke_config("jamba-1.5-large-398b"))):
+        out[name] = servers_card_vs_cpu(name, cfg)
+
+    def layer_errs(cfg, blocks, seed):
+        """blocks: [(init, block, decode_step)] run in turn over x."""
+        gen = torch.Generator().manual_seed(seed)
+        cpu_p = [init(gen, cfg, torch.float32) for init, _, _ in blocks]
+        card_p = [{k: v.cuda() for k, v in p.items()} for p in cpu_p]
+        x = torch.randn((2, 40, cfg.d_model),
+                        generator=torch.Generator().manual_seed(seed + 1))
+        errs, caches = [], {}
+        for dev, params in (("cuda", card_p), ("cpu", cpu_p)):
+            h, cs = x[:, :32].to(dev), []
+            for (_, block, _), p in zip(blocks, params):
+                h, c = block(p, h, cfg)
+                cs.append(c)
+            steps = []
+            for i in range(32, 40):
+                h = x[:, i:i + 1].to(dev)
+                for j, ((_, _, step), p) in enumerate(zip(blocks, params)):
+                    h, cs[j] = step(p, h, cs[j], cfg)
+                steps.append(h.cpu())
+            caches[dev] = (cs, steps)
+        for a, b in zip(caches["cuda"][1], caches["cpu"][1]):
+            errs.append(close(a, b, 1e-3))
+        for ca, cb in zip(caches["cuda"][0], caches["cpu"][0]):
+            errs += [close(ca[k].cpu(), cb[k], 1e-3) for k in cb]
+        return errs
+
+    jamba = dataclasses.replace(get_config("jamba-1.5-large-398b"),
+                                dtype="float32")
+    xl = dataclasses.replace(get_config("xlstm-350m"), dtype="float32")
+    errs = layer_errs(jamba, [(mamba.init_mamba, mamba.mamba_block,
+                               mamba.mamba_decode_step)], 7)
+    errs += layer_errs(xl, [(xlstm.init_mlstm, xlstm.mlstm_block,
+                             xlstm.mlstm_decode_step),
+                            (xlstm.init_slstm, xlstm.slstm_block,
+                             xlstm.slstm_decode_step)], 9)
+    check(all(ok for _, ok in errs),
+          f"mamba / xLSTM layers card vs CPU: max errors "
+          f"{[e for e, _ in errs]}")
+    out["layers_err"] = max(e for e, _ in errs)
     torch.cuda.empty_cache()
     return out
 
@@ -1893,6 +2039,42 @@ def main():
           f"{sb['wall_s']:.3f} s ({NUM_QUERIES / sb['wall_s']:.1f} queries per "
           f"wall-second) | {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phases 16-18: xLSTM, the encoder-decoder and the mamba hybrid ----
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    xls = phase_serve("xlstm-350m", None)
+    print(serve_line(16, xls, t0) + " | no B3/B4 launch (xLSTM is torch ops; "
+          "weights the analytic count covers: equal to it, but for the "
+          f"reference's sLSTM rounding of {analytic_excess(xls['cfg'])})",
+          flush=True)
+    t0 = time.perf_counter()
+    sml = phase_serve("seamless-m4t-large-v2", "flash_wgmma")
+    print(serve_line(17, sml, t0) + " | bf16 stub frames (ones x 0.1); B3 on "
+          "12 encoder, 12 decoder and 12 cross-attention layers; decode's "
+          "cross-attention over the reference server's zero ck/cv (torch ops)",
+          flush=True)
+    t0 = time.perf_counter()
+    jam_cfg = get_config("jamba-1.5-large-398b")
+    jam = phase_serve("jamba-1.5-large-398b", "flash_wgmma", num_layers=8,
+                      moe=dataclasses.replace(jam_cfg.moe, num_experts=8))
+    print(serve_line(18, jam, t0, cut=" (72 layers cut to one group of 8, 16 "
+                     "experts to 8, every width and top-2 kept)"), flush=True)
+
+    # ---- phase 19: the three families, card vs CPU ------------------------
+    t0 = time.perf_counter()
+    fcc = phase_family_card_vs_cpu()
+    print("phase 19 card vs cpu (xLSTM, encdec, mamba hybrid, f32): " + "; ".join(
+        f"{name}: tokens equal {r['toks'].tolist()}, prefill logits max "
+        f"|card - cpu| {r['logit_err']:.3g} (atol = rtol = 1e-3), set-up "
+        f"{r['setup_s']:.1f} s, generate {r['card_s']:.1f} s on the card, "
+        f"{r['cpu_s']:.1f} s on the CPU"
+        for name, r in fcc.items() if name != "layers_err")
+        + f"; jamba's mamba layer and xlstm-350m's mLSTM + sLSTM pair at their "
+        f"published widths: forward and 8 decode steps within "
+        f"{fcc['layers_err']:.3g} (1e-3) | {time.perf_counter() - t0:.1f} s",
+        flush=True)
+
     # launches on each kernel's path: B1/B2 on the pool (phases 3, 4); B3's
     # total, its wgmma variant and B4 on phi3's serving path (phase 7); the
     # f32 variant on phase 8's float32 server; the hd-256 wgmma variant on
@@ -1908,9 +2090,12 @@ def main():
     # phase 12's deepseek-moe-16b adds its B3 (flash_wgmma) and B4
     # launches, phases 12 and 13 their B1 probes (deepseek-v3's MLA
     # launches neither B3 nor B4)
+    # phases 17 and 18 (seamless-m4t, jamba) add theirs the same way, and
+    # phases 16-18 their B1 probes (xLSTM launches neither B3 nor B4)
     for n in ("flash_attention", "flash_wgmma", "decode_attention"):
-        launches[n] += dsm["launches"][n]
-    for srv_ in (dsm, dsv):
+        for srv_ in (dsm, sml, jam):
+            launches[n] += srv_["launches"][n]
+    for srv_ in (dsm, dsv, xls, sml, jam):
         launches["distance_slot_gather"] += srv_["launches"]["distance_slot_gather"]
     launches.update(flash_fp32=cmp_["launches"]["flash_fp32"],
                     flash_wgmma256=gem["launches"]["flash_wgmma256"],
@@ -1964,7 +2149,11 @@ def main():
                  if key in c} for c in cases if c["variant"] == name]
         if name == "decode_attention":
             for key, shape, srv_ in (("gemma_7b", (16, 16, 256), gem),
-                                     ("deepseek_moe_16b", (16, 16, 128), dsm)):
+                                     ("deepseek_moe_16b", (16, 16, 128), dsm),
+                                     ("seamless_m4t_large_v2", (16, 16, 64),
+                                      sml),
+                                     ("jamba_15_large_398b", (64, 8, 128),
+                                      jam)):
                 g = dec[shape]
                 entry[key] = {
                     "shape": g["shape"],
@@ -1974,12 +2163,24 @@ def main():
                     "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
                     "library_ms": g["library_ms"]}
         if name == "flash_wgmma":
-            c = next(c for c in cases if c["shape"] == (4, 512, 16, 16, 128))
-            entry["deepseek_moe_16b"] = {
-                key: c[key] for key in ("shape", "dtype", "max_abs_err", "ms",
-                                        "plain_ms", "library_ms", "bound_ms",
-                                        "bound_by")}
-            entry["deepseek_moe_16b"]["launches"] = dsm["launches"]["flash_wgmma"]
+            keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by")
+            # each served config's phase-6 cases at its heads: deepseek-moe's
+            # (16/16, hd 128), seamless-m4t's causal, non-causal and Sq != Sk
+            # cross cases (16/16, hd 64; the first is the main figure),
+            # jamba's (64/8, hd 128)
+            for key, heads, srv_ in (("deepseek_moe_16b", (16, 16, 128), dsm),
+                                     ("seamless_m4t_large_v2", (16, 16, 64),
+                                      sml),
+                                     ("jamba_15_large_398b", (64, 8, 128),
+                                      jam)):
+                mine = [c for c in cases if c["shape"][2:5] == heads
+                        and c["shape"][:2] == (4, 512)]
+                entry[key] = {k: mine[0][k] for k in keys}
+                entry[key]["launches"] = srv_["launches"]["flash_wgmma"]
+                if len(mine) > 1:
+                    entry[key]["cases"] = [{k: c[k] for k in keys}
+                                           for c in mine]
         line.append(entry)
     print(f"all phases took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)

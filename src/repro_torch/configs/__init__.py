@@ -1,12 +1,10 @@
 """Architecture config registry of the port: ``get_config(arch)`` /
-``get_smoke_config(arch)`` over the architectures it serves: the dense GQA
-family and the DeepSeek family (MoE, MLA, MTP).
+``get_smoke_config(arch)`` over every architecture of the JAX package: the
+dense GQA family, the DeepSeek family (MoE, MLA, MTP), xLSTM, the
+encoder-decoder and the mamba/attention hybrid.
 
 Each module here is a copy of the JAX package's ``configs/<arch>.py``
 (``CONFIG`` at the published size, ``SMOKE_CONFIG`` reduced for the CPU).
-The other architectures of the JAX package belong to model families the
-port does not run yet; asking for one raises ``KeyError`` naming the
-ROADMAP item that ports its family.
 """
 from __future__ import annotations
 
@@ -20,8 +18,7 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exported)
     VectorPoolConfig,
 )
 
-# arch-id -> module name (block_kind="attn": the dense GQA family and the
-# DeepSeek family's MoE, MLA and MTP)
+# arch-id -> module name
 _ARCH_MODULES: Dict[str, str] = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "deepseek-moe-16b": "deepseek_moe_16b",
@@ -29,14 +26,10 @@ _ARCH_MODULES: Dict[str, str] = {
     "gemma-7b": "gemma_7b",
     "command-r-plus-104b": "command_r_plus_104b",
     "qwen1.5-32b": "qwen15_32b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "internvl2-1b": "internvl2_1b",
-}
-
-# arch-id -> family, for the JAX package's archs the port does not serve yet
-_NOT_PORTED: Dict[str, str] = {
-    "seamless-m4t-large-v2": "encoder-decoder",
-    "jamba-1.5-large-398b": "mamba/attention hybrid with MoE",
-    "xlstm-350m": "xLSTM",
+    "jamba-1.5-large-398b": "jamba_15_large_398b",
+    "xlstm-350m": "xlstm_350m",
 }
 
 
@@ -45,10 +38,6 @@ def list_archs() -> List[str]:
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise KeyError(
-            f"arch {arch!r} ({_NOT_PORTED[arch]} family) is not ported yet: "
-            "ROADMAP Queue A item 12 ports the other model families")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")

@@ -71,52 +71,93 @@ def _layer_tree(tree, i: int):
     return tree[i]
 
 
-def lm_params_from_numpy(cfg, params, device="cuda"):
-    """The port's parameters from an LM parameter tree in the JAX package's
-    layout with numpy leaves (``jax.device_get`` of
-    ``model_zoo.init_params``): ``embed``, ``final_norm``, ``lm_head``
-    (untied), ``blocks["l0"]`` with each leaf stacked on a leading layer
-    axis (a MoE's experts stacked (L, E, ., .)) and the unstacked ``mtp``
-    subtree. Returns the port's tree (``blocks`` a list of per-layer dicts)
-    on ``device``, each leaf in the dtype ``init_lm_params`` gives it:
-    ``cfg.dtype``, the MoE router float32. Values are carried bit for bit
-    (bfloat16 leaves pass exactly through float32)."""
-    from repro_torch.models.moe import ROUTER_DTYPE
-    from repro_torch.models.transformer import DTYPES, check_supported
+def _unstack(tree, n: int):
+    """A tree whose leaves are stacked on a leading axis of ``n`` -> a list
+    of ``n`` trees."""
+    return [_layer_tree(tree, i) for i in range(n)]
 
-    check_supported(cfg)
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _leading(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return len(np.asarray(tree))
+
+
+def lm_params_from_numpy(cfg, params, device="cuda"):
+    """The port's parameters from a parameter tree in the JAX package's
+    layout with numpy leaves (``jax.device_get`` of
+    ``model_zoo.init_params``), on ``device``:
+
+    - ``block_kind="attn"``: ``blocks["l0"]`` with each leaf stacked on a
+      leading layer axis (a MoE's experts stacked (L, E, ., .)) becomes a
+      list of per-layer dicts; the ``mtp`` subtree is unstacked;
+    - ``"mamba_attn"`` and ``"xlstm"``: ``blocks["l{i}"]`` stacked on the
+      group axis becomes a list of per-group dicts keyed ``l{i}``;
+    - ``"encdec"``: ``encoder`` and ``decoder``, stacked on their layer
+      axes, become lists of per-layer dicts.
+
+    Each leaf takes the dtype the port's init gives it: ``cfg.dtype``, but
+    float32 for the MoE router and mamba's ``A_log`` and ``D``. Values are
+    carried bit for bit (bfloat16 leaves pass exactly through float32)."""
+    from repro_torch.models.mamba import F32_LEAVES
+    from repro_torch.models.moe import ROUTER_DTYPE
+    from repro_torch.models.transformer import (DTYPES, group_layer_kinds,
+                                                num_groups)
+
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
+    f32 = {"router": ROUTER_DTYPE, **{k: torch.float32 for k in F32_LEAVES}}
 
     def put(tree, name=""):
         if isinstance(tree, dict):
             return {k: put(v, k) for k, v in tree.items()}
         return torch.tensor(np.asarray(tree, np.float32)).to(
-            device=dev, dtype=ROUTER_DTYPE if name == "router" else dtype)
+            device=dev, dtype=f32.get(name, dtype))
 
-    stacked = params["blocks"]["l0"]
-    n = len(np.asarray(stacked["ln1"]))
-    if n != cfg.num_layers:
-        raise ValueError(f"tree has {n} layers, cfg {cfg.num_layers}")
-    out = {k: put(v, k) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = [put(_layer_tree(stacked, i)) for i in range(n)]
+    if cfg.block_kind == "encdec":
+        stacks = {"encoder": cfg.encoder_layers,
+                  "decoder": cfg.num_layers - cfg.encoder_layers}
+    else:
+        group_layer_kinds(cfg)  # ValueError for a block kind with no stack
+        stacks = {"blocks": num_groups(cfg)}
+    out = {}
+    for key, tree in params.items():
+        n = stacks.get(key)
+        if n is None:
+            out[key] = put(tree, key)
+            continue
+        if _leading(tree) != n:
+            raise ValueError(f"tree's {key} has {_leading(tree)} layers or "
+                             f"groups, cfg {n}")
+        if cfg.block_kind == "attn":
+            tree = tree["l0"]
+        out[key] = [put(t) for t in _unstack(tree, n)]
     return out
 
 
 def lm_params_to_numpy(params):
     """The inverse of ``lm_params_from_numpy``: the JAX package's layout
-    (``blocks["l0"]`` stacked on a leading layer axis, ``mtp`` unstacked)
-    with float32 numpy leaves, exact for float32 and bfloat16 parameters."""
+    (per-layer lists stacked into ``blocks["l0"]``, per-group lists into
+    ``blocks["l{i}"]``, ``encoder``/``decoder`` onto their layer axes;
+    ``mtp`` unstacked) with float32 numpy leaves, exact for float32 and
+    bfloat16 parameters."""
     def get(tree):
         if isinstance(tree, dict):
             return {k: get(v) for k, v in tree.items()}
         return tree.detach().float().cpu().numpy()
 
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return np.stack(trees)
-
-    out = {k: get(v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = {"l0": stack([get(b) for b in params["blocks"]])}
+    out = {}
+    for k, v in params.items():
+        if not isinstance(v, list):
+            out[k] = get(v)
+        elif k == "blocks" and "l0" not in v[0]:  # per-layer attention blocks
+            out[k] = {"l0": _stack([get(b) for b in v])}
+        else:
+            out[k] = _stack([get(b) for b in v])
     return out

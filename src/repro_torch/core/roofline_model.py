@@ -12,8 +12,7 @@ These are model outputs for the TPU-v5e-class ``V5E`` row (197 TFLOP/s
 bf16, 819 GB/s HBM, 50 GB/s/link ICI), not times measured on any card;
 nothing derived from them is an H100 number. The parameter counts come
 from the port's ``models/model_zoo.analytic_param_count``, which covers
-attention blocks (dense GQA and the DeepSeek family's MoE, MLA and MTP)
-and raises naming ROADMAP item 12 for the other families.
+every model family of the JAX package.
 """
 from __future__ import annotations
 

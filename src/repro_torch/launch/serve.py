@@ -26,6 +26,7 @@ from repro_torch.core.scheduler import VectorRequest
 from repro_torch.core.trinity_pool import VectorPool
 from repro_torch.device import resolve_device
 from repro_torch.models import model_zoo
+from repro_torch.models.transformer import DTYPES
 from repro_torch.vector.dataset import make_dataset
 from repro_torch.vector.graph import make_cagra_graph
 
@@ -88,7 +89,13 @@ class RealServer:
             self._retrieve("prefill",
                            self.pool.db[rng.integers(len(self.pool.db))])
         batch = {"tokens": self._tokens(prompts)}
-        if self.cfg.frontend_tokens > 0:
+        if model_zoo.is_encdec(self.cfg):
+            # the stub frontend's frames, in the model's dtype (the
+            # reference's float32 frames make its bfloat16 prefill raise)
+            batch["frames"] = torch.ones(
+                (B, S, self.cfg.d_model), dtype=DTYPES[self.cfg.dtype],
+                device=self.device) * 0.1
+        elif self.cfg.frontend_tokens > 0:
             batch["frontend"] = torch.ones(
                 (B, self.cfg.frontend_tokens, self.cfg.d_model),
                 dtype=torch.float32, device=self.device)
@@ -99,7 +106,8 @@ class RealServer:
         # decode pool consumes the transferred caches (fresh max-len caches
         # seeded by re-running prefill into them token-by-token is wasteful;
         # production transfers pages — here we re-prefill into a decode-side
-        # cache, as the JAX package's server does)
+        # cache, as the JAX package's server does; under encdec its cross
+        # ck/cv stay zero, as there)
         max_len = S + max_new
         caches = model_zoo.init_decode_caches(self.cfg, B, max_len,
                                               self.device)

@@ -100,17 +100,32 @@ def attend_blocked(q, k, v, q_positions, kv_positions, causal: bool,
     return torch.cat(outs, dim=1)
 
 
-def attention_forward(params, x, cfg, positions=None, causal: bool = True):
-    """Full-sequence causal attention (prefill). Returns (out (B,S,d),
-    (k, v)) with k after rotary embedding, as the cache stores it."""
+def attention_forward(params, x, cfg, positions=None, causal: bool = True,
+                      kv_override=None):
+    """Full-sequence attention (prefill, the encoder, cross-attention).
+    Returns (out (B,S,d), (k, v)) with k after rotary embedding, as the
+    cache stores it.
+
+    kv_override: (k, v, kv_positions) for cross-attention: the keys and
+    values are the override's (B, Sk, Hkv, hd), and neither q nor k gets
+    rotary embedding. The kernel's causal mask is by index, the
+    reference's by position: the same wherever both are aranges (every
+    caller's)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg)
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    cos, sin = layers.rope_angles(positions, cfg.resolved_head_dim,
-                                  cfg.rope_theta)
-    q = layers.apply_rope(q, cos, sin)
-    k = layers.apply_rope(k, cos, sin)
+    if kv_override is None:
+        q, k, v = _project_qkv(params, x, cfg)
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        cos, sin = layers.rope_angles(positions, cfg.resolved_head_dim,
+                                      cfg.rope_theta)
+        q = layers.apply_rope(q, cos, sin)
+        k = layers.apply_rope(k, cos, sin)
+    else:
+        q = x @ params["wq"]
+        if cfg.qkv_bias:
+            q = q + params["bq"]
+        q = q.reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+        k, v, _ = kv_override
     out = ops.flash_attention(q, k, v, causal=causal)
     return out.reshape(B, S, -1) @ params["wo"], (k, v)
 

@@ -71,6 +71,28 @@ def apply_rope(x, cos, sin):
     return out.to(x.dtype)
 
 
+def softplus(x):
+    """``jax.nn.softplus``: logaddexp(x, 0), the reference's formula (torch's
+    ``F.softplus`` rounds otherwise and returns x itself above 20)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def chunk_len(S: int, chunk: int = 256) -> int:
+    """A chunked scan's chunk: min(chunk, S), halved until it divides S
+    (the reference's rule for mLSTM and mamba)."""
+    Lc = min(chunk, S)
+    while S % Lc:
+        Lc //= 2
+    return Lc
+
+
+def causal_taps(xp, w, S: int):
+    """Σ_j xp[:, j:j+S] · w[j] over the taps of a depthwise causal conv
+    (xp holds the len(w) − 1 inputs before the S new ones), summed in the
+    reference's order."""
+    return sum(xp[:, j:j + S, :] * w[j] for j in range(w.shape[0]))
+
+
 def init_gated_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype):
     return {
         "wi_gate": dense_init(gen, d_model, d_ff, dtype),

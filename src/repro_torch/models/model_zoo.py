@@ -2,17 +2,17 @@
 parameter counts and MODEL_FLOPS (the JAX package's
 ``models/model_zoo.py``).
 
-The port serves attention blocks (the dense GQA family and the DeepSeek
-family: MLA, MoE, MTP); the mamba/attention hybrid, xLSTM and
-encoder-decoder families raise ``NotImplementedError`` naming ROADMAP
-Queue A item 12, and the training entry (``loss_fn``) waits for item 13.
-``input_specs`` and ``param_specs`` build ``jax.ShapeDtypeStruct``
-stand-ins for the TPU dry run and have no counterpart here (item 14).
+Every family of the JAX package is served: decoder-only stacks
+(``transformer``: attention blocks, the mamba/attention hybrid, xLSTM) and
+the encoder-decoder (``encdec``). The training entry (``loss_fn``) waits
+for ROADMAP Queue A item 13. ``input_specs`` and ``param_specs`` build
+``jax.ShapeDtypeStruct`` stand-ins for the TPU dry run and have no
+counterpart here (item 14).
 """
 from __future__ import annotations
 
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, mamba, transformer
 
 
 def is_encdec(cfg) -> bool:
@@ -20,24 +20,38 @@ def is_encdec(cfg) -> bool:
 
 
 def init_params(cfg, seed: int = 0, device="cuda"):
+    if is_encdec(cfg):
+        return encdec.init_encdec_params(cfg, seed, device)
     return transformer.init_lm_params(cfg, seed, device)
 
 
 def prefill_fn(cfg, params, batch):
-    """batch: {"tokens": (B,S) int, ["frontend"]: (B,F,d)}."""
+    """batch: {"tokens": (B,S) int, ["frontend"]: (B,F,d)}; under encdec
+    {"frames": (B,S,d), "tokens": (B,S) int}."""
+    if is_encdec(cfg):
+        return encdec.encdec_prefill(params, cfg, batch["frames"],
+                                     batch["tokens"])
     return transformer.prefill(params, cfg, batch["tokens"],
                                batch.get("frontend"))
 
 
 def decode_fn(cfg, params, token, caches, cur_len: int, seq_axis=None):
+    if is_encdec(cfg):
+        return encdec.encdec_decode_step(params, cfg, token, caches, cur_len,
+                                         seq_axis)
     return transformer.decode_step(params, cfg, token, caches, cur_len,
                                    seq_axis)
 
 
 def init_decode_caches(cfg, batch: int, max_len: int, device="cuda"):
+    """Zeroed decode caches; under encdec the cross ``ck``/``cv`` are
+    ``max_len`` long, as the reference makes them."""
     dtype = transformer.DTYPES[cfg.dtype]
-    return transformer.init_decode_caches(cfg, batch, max_len, dtype,
-                                          resolve_device(device))
+    dev = resolve_device(device)
+    if is_encdec(cfg):
+        return encdec.init_encdec_caches(cfg, batch, max_len, max_len, dtype,
+                                         dev)
+    return transformer.init_decode_caches(cfg, batch, max_len, dtype, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -70,28 +84,61 @@ def _moe_params(cfg, active_only: bool) -> int:
     return p
 
 
-def _ffn_params(cfg, use_moe: bool, active_only: bool) -> int:
-    if use_moe:
-        return _moe_params(cfg, active_only)
-    return 0 if cfg.mlp_kind == "none" else 3 * cfg.d_model * cfg.d_ff
+def _mamba_params(cfg) -> int:
+    d = cfg.d_model
+    di = cfg.mamba_expand * d
+    ds = cfg.mamba_d_state
+    dtr = mamba.dt_rank_for(d)
+    return (d * 2 * di + cfg.mamba_d_conv * di + di * (dtr + 2 * ds)
+            + dtr * di + di * ds + di + di * d)
+
+
+def _mlstm_params(cfg) -> int:
+    d = cfg.d_model
+    di = 2 * d
+    return d * 2 * di + 4 * di + 3 * di * di + di * 2 * cfg.num_heads + di * d
+
+
+def _slstm_params(cfg) -> int:
+    d = cfg.d_model
+    return d * 4 * d + 4 * d * (d // cfg.num_heads) + d * (4 * d) // 3 * 2
 
 
 def analytic_param_count(cfg, active_only: bool = False) -> int:
-    """The JAX package's count (embedding, untied head, attention and the
-    MLP or MoE of each layer, the MTP block; biases and norms are not
-    counted). ``active_only`` counts the top-k routed experts of each MoE
-    (the router and shared experts always). The mamba and xLSTM terms come
-    with their families (ROADMAP Queue A item 12)."""
-    kinds = transformer.group_layer_kinds(cfg)  # raises naming item 12
+    """The JAX package's count (embedding, untied head, each layer's mixer
+    and MLP or MoE, the MTP block; biases, norms and the mLSTM/mamba conv
+    biases are not counted). ``active_only`` counts the top-k routed
+    experts of each MoE (the router and shared experts always)."""
     vp = transformer.lm_head_vocab(cfg)
     total = vp * cfg.d_model  # embedding
     if not cfg.tie_embeddings:
         total += cfg.d_model * vp  # head
-    per_group = sum(
-        _attn_params(cfg) + _ffn_params(cfg, transformer._uses_moe(cfg, i),
-                                        active_only)
-        for i, _ in enumerate(kinds))
-    total += per_group * transformer.num_groups(cfg)
+
+    if cfg.block_kind == "xlstm":
+        per_group = sum(_mlstm_params(cfg) if k == "mlstm" else _slstm_params(cfg)
+                        for k in cfg.xlstm_pattern)
+        return total + per_group * (cfg.num_layers // len(cfg.xlstm_pattern))
+
+    if cfg.block_kind == "encdec":
+        n_dec = cfg.num_layers - cfg.encoder_layers
+        enc = cfg.encoder_layers * (_attn_params(cfg) + 3 * cfg.d_model * cfg.d_ff)
+        dec = n_dec * (2 * _attn_params(cfg) + 3 * cfg.d_model * cfg.d_ff)
+        return total + enc + dec
+
+    # attn / mamba_attn stacks
+    g = transformer.group_size(cfg)
+    kinds = transformer.group_layer_kinds(cfg)
+    per_group = 0
+    for i, kind in enumerate(kinds):
+        mixer = _attn_params(cfg) if kind == "attn" else _mamba_params(cfg)
+        if cfg.mlp_kind == "moe" and (i % cfg.moe_every == 0):
+            ffn = _moe_params(cfg, active_only)
+        elif cfg.mlp_kind == "none":
+            ffn = 0
+        else:
+            ffn = 3 * cfg.d_model * cfg.d_ff
+        per_group += mixer + ffn
+    total += per_group * (cfg.num_layers // g)
     if cfg.mtp_depth > 0:
         total += 2 * cfg.d_model * cfg.d_model + _attn_params(cfg)
         total += _moe_params(cfg, active_only) if cfg.mlp_kind == "moe" \

@@ -1,14 +1,22 @@
-"""Decoder-only LM assembly for ``block_kind="attn"`` (the JAX package's
-``models/transformer.py``): the dense GQA family and the DeepSeek family —
-GQA or MLA attention, a dense swiglu/geglu MLP or a fine-grained MoE, and
-deepseek-v3's multi-token-prediction (MTP) block.
+"""Decoder-only LM assembly for every non-encdec architecture (the JAX
+package's ``models/transformer.py``): attention blocks (the dense GQA
+family and the DeepSeek family — GQA or MLA attention, a dense swiglu/geglu
+MLP or a fine-grained MoE, and deepseek-v3's multi-token-prediction (MTP)
+block), the mamba/attention hybrid (jamba: ``attn_every`` layers a group,
+attention at position ``attn_every // 2``, the MoE every ``moe_every``-th
+layer and a dense swiglu between) and xLSTM (``xlstm_pattern``'s mLSTM and
+sLSTM blocks a group).
 
-The JAX package stacks its layers on a leading axis and scans them; here
-``params["blocks"]`` is a list of per-layer dicts and the stack is a Python
-loop. Caches are a list of per-layer dicts: ``{"k", "v"}`` for GQA,
-``{"ckv", "kr"}`` for MLA. The MTP subtree (``params["mtp"]``: ``proj``,
-``block``, ``norm``) is made as the reference makes it; serving never reads
-it (it trains with the MTP loss).
+The JAX package stacks its layers (or groups) on a leading axis and scans
+them; here the stack is a Python loop over lists. Under
+``block_kind="attn"`` ``params["blocks"]`` is a list of per-layer dicts and
+the caches a list of per-layer ``{"k", "v"}`` (GQA) or ``{"ckv", "kr"}``
+(MLA). Under ``"mamba_attn"`` and ``"xlstm"`` both are lists of per-group
+dicts keyed ``l0`` … ``l{g-1}``, as the reference's groups: a mamba layer's
+cache is ``{"h", "conv"}``, an mLSTM's ``{"C", "n", "m", "conv"}``, an
+sLSTM's ``{"h", "c", "n", "m"}``. The MTP subtree (``params["mtp"]``:
+``proj``, ``block``, ``norm``) is made as the reference makes it; serving
+never reads it (it trains with the MTP loss).
 
 API:
   init_lm_params(cfg, seed, device)                -> params
@@ -16,10 +24,8 @@ API:
   init_decode_caches(cfg, batch, max_len, dtype, device) -> caches
   decode_step(params, cfg, token, caches, cur_len) -> (logits, caches)
 
-The mamba/attention hybrid, xLSTM and encoder-decoder blocks raise
-``NotImplementedError`` (ROADMAP Queue A item 12); the training functions
-(``forward_train``, ``lm_loss``, ``chunked_xent``) come with the training
-slice (item 13).
+The training functions (``forward_train``, ``lm_loss``, ``chunked_xent``)
+come with the training slice (ROADMAP Queue A item 13).
 """
 from __future__ import annotations
 
@@ -28,19 +34,10 @@ from typing import Optional
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, mla, moe
+from repro_torch.models import attention, layers, mamba, mla, moe, xlstm
 
 # the parameter types the attention kernels take
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError for a block kind the port does not run."""
-    if cfg.block_kind != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: block_kind={cfg.block_kind!r} is not ported yet "
-            "(the port runs attention blocks: GQA or MLA, dense or MoE): "
-            "ROADMAP Queue A item 12 ports the other model families")
 
 
 def _uses_moe(cfg, layer_idx_in_group: int) -> bool:
@@ -62,8 +59,15 @@ def num_groups(cfg) -> int:
 
 
 def group_layer_kinds(cfg):
-    check_supported(cfg)
-    return ["attn"]
+    bk = cfg.block_kind
+    if bk == "attn":
+        return ["attn"]
+    if bk == "mamba_attn":
+        g = cfg.attn_every
+        return ["attn" if i == g // 2 else "mamba" for i in range(g)]
+    if bk == "xlstm":
+        return list(cfg.xlstm_pattern)
+    raise ValueError(bk)
 
 
 def lm_head_vocab(cfg) -> int:
@@ -86,17 +90,48 @@ def _init_attn_layer(gen: torch.Generator, cfg, dtype, use_moe: bool):
     return p
 
 
+def _init_mamba_layer(gen: torch.Generator, cfg, dtype, use_moe: bool):
+    dev = gen.device
+    p = {"ln1": layers.init_rms_norm(cfg.d_model, dtype, dev),
+         "ln2": layers.init_rms_norm(cfg.d_model, dtype, dev),
+         "mamba": mamba.init_mamba(gen, cfg, dtype)}
+    if use_moe:
+        p["mlp"] = moe.init_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = layers.init_gated_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+_XLSTM_INIT = {"mlstm": xlstm.init_mlstm, "slstm": xlstm.init_slstm}
+
+
+def _init_layer(gen: torch.Generator, cfg, dtype, kind: str, i: int):
+    if kind == "attn":
+        return _init_attn_layer(gen, cfg, dtype, _uses_moe(cfg, i))
+    if kind == "mamba":
+        return _init_mamba_layer(gen, cfg, dtype, _uses_moe(cfg, i))
+    return _XLSTM_INIT[kind](gen, cfg, dtype)
+
+
+def init_group(gen: torch.Generator, cfg, dtype):
+    """One group's layers, keyed ``l0`` … ``l{g-1}``."""
+    return {f"l{i}": _init_layer(gen, cfg, dtype, kind, i)
+            for i, kind in enumerate(group_layer_kinds(cfg))}
+
+
 def init_lm_params(cfg, seed: int = 0, device="cuda"):
     """Random parameters from ``seed``, made one tensor at a time on
     ``device`` (the JAX package's distributions, not its bits)."""
-    check_supported(cfg)
+    group_layer_kinds(cfg)  # ValueError for a block kind with no stack
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     gen = torch.Generator(device=dev).manual_seed(seed)
     vp = lm_head_vocab(cfg)
     params = {"embed": layers.embed_init(gen, vp, cfg.d_model, dtype)}
-    params["blocks"] = [_init_attn_layer(gen, cfg, dtype, _uses_moe(cfg, 0))
-                        for _ in range(num_groups(cfg))]
+    groups = [init_group(gen, cfg, dtype) for _ in range(num_groups(cfg))]
+    # attention blocks keep their per-layer layout (a group is one layer)
+    params["blocks"] = ([g["l0"] for g in groups]
+                        if cfg.block_kind == "attn" else groups)
     params["final_norm"] = layers.init_rms_norm(cfg.d_model, dtype, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, cfg.d_model, vp, dtype)
@@ -144,17 +179,46 @@ def _mlp_apply(p, x, cfg, use_moe: bool):
     return layers.gated_mlp(p["mlp"], x, kind)
 
 
-def _init_layer_cache(cfg, batch: int, max_len: int, dtype, device):
-    if cfg.attn_kind == "mla":
-        return mla.init_mla_cache(cfg, batch, max_len, dtype, device)
-    return attention.init_cache(cfg, batch, max_len, dtype, device)
+def _with_mlp(p, x, a, cfg, use_moe: bool):
+    """x + a, then the layer's MLP (or MoE) on its ln2 norm, added."""
+    x = x + a
+    return x + _mlp_apply(p, layers.rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
+                          use_moe)
+
+
+# ---------------------------------------------------------------------------
+# decode caches
+# ---------------------------------------------------------------------------
+
+
+def _init_layer_cache(cfg, kind: str, batch: int, max_len: int, dtype,
+                      device):
+    if kind == "attn":
+        if cfg.attn_kind == "mla":
+            return mla.init_mla_cache(cfg, batch, max_len, dtype, device)
+        return attention.init_cache(cfg, batch, max_len, dtype, device)
+    if kind == "mamba":
+        return mamba.init_mamba_cache(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return xlstm.init_mlstm_cache(cfg, batch, dtype, device)
+    if kind == "slstm":
+        return xlstm.init_slstm_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
 
 
 def init_decode_caches(cfg, batch: int, max_len: int, dtype, device):
-    check_supported(cfg)
+    kinds = group_layer_kinds(cfg)
     dev = resolve_device(device)
-    return [_init_layer_cache(cfg, batch, max_len, dtype, dev)
-            for _ in range(num_groups(cfg))]
+    if cfg.block_kind == "attn":
+        return [_init_layer_cache(cfg, "attn", batch, max_len, dtype, dev)
+                for _ in range(num_groups(cfg))]
+    return [{f"l{i}": _init_layer_cache(cfg, k, batch, max_len, dtype, dev)
+             for i, k in enumerate(kinds)} for _ in range(num_groups(cfg))]
+
+
+# ---------------------------------------------------------------------------
+# decode step
+# ---------------------------------------------------------------------------
 
 
 def _attn_layer_decode(p, x, cache, cur_len: int, cfg, use_moe: bool,
@@ -166,19 +230,52 @@ def _attn_layer_decode(p, x, cache, cur_len: int, cfg, use_moe: bool,
     else:
         a, cache = attention.decode_step_attention(p["attn"], h, cache,
                                                    cur_len, cfg, seq_axis)
-    x = x + a
-    return x + _mlp_apply(p, layers.rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
-                          use_moe), cache
+    return _with_mlp(p, x, a, cfg, use_moe), cache
+
+
+def _layer_decode(p, x, cache, cur_len: int, cfg, kind: str, i: int,
+                  seq_axis):
+    """One layer of a group at decode. Returns (x, the layer's cache)."""
+    if kind == "attn":
+        return _attn_layer_decode(p, x, cache, cur_len, cfg,
+                                  _uses_moe(cfg, i), seq_axis)
+    if kind == "mamba":
+        h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+        a, cache = mamba.mamba_decode_step(p["mamba"], h, cache, cfg)
+        return _with_mlp(p, x, a, cfg, _uses_moe(cfg, i)), cache
+    if kind == "mlstm":
+        return xlstm.mlstm_decode_step(p, x, cache, cfg)
+    return xlstm.slstm_decode_step(p, x, cache, cfg)
+
+
+def group_decode(p_group, x, caches, cur_len: int, cfg, seq_axis=None):
+    """One group at decode; the group's cache dict gets each layer's new
+    cache in place. Returns (x, caches)."""
+    for i, kind in enumerate(group_layer_kinds(cfg)):
+        x, caches[f"l{i}"] = _layer_decode(p_group[f"l{i}"], x,
+                                           caches[f"l{i}"], cur_len, cfg,
+                                           kind, i, seq_axis)
+    return x, caches
 
 
 def decode_step(params, cfg, token, caches, cur_len: int, seq_axis=None):
     """token: (B,1) int; cur_len: host int (tokens already cached).
-    Returns (logits (B,1,V) float32, caches), the caches updated in place."""
+    Returns (logits (B,1,V) float32, caches), the caches updated in place
+    (attention caches written at ``cur_len``; recurrent states replaced in
+    their group's dict)."""
     x = embed_tokens(params, cfg, token)
     for p, cache in zip(params["blocks"], caches):
-        x, _ = _attn_layer_decode(p, x, cache, cur_len, cfg,
-                                  _uses_moe(cfg, 0), seq_axis)
+        if cfg.block_kind == "attn":
+            x, _ = _attn_layer_decode(p, x, cache, cur_len, cfg,
+                                      _uses_moe(cfg, 0), seq_axis)
+        else:
+            x, _ = group_decode(p, x, cache, cur_len, cfg, seq_axis)
     return lm_logits(params, cfg, x), caches
+
+
+# ---------------------------------------------------------------------------
+# prefill (returns populated caches for handoff to the decode pool)
+# ---------------------------------------------------------------------------
 
 
 def _attn_layer_prefill(p, x, cfg, positions, use_moe: bool):
@@ -189,21 +286,42 @@ def _attn_layer_prefill(p, x, cfg, positions, use_moe: bool):
     else:
         a, (k, v) = attention.attention_forward(p["attn"], h, cfg, positions)
         kv = {"k": k, "v": v}
-    x = x + a
-    return x + _mlp_apply(p, layers.rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
-                          use_moe), kv
+    return _with_mlp(p, x, a, cfg, use_moe), kv
+
+
+def _layer_prefill(p, x, cfg, positions, kind: str, i: int):
+    """One layer of a group over the prompt. Returns (x, the layer's
+    cache: k/v, or the recurrent end state and conv tail)."""
+    if kind == "attn":
+        return _attn_layer_prefill(p, x, cfg, positions, _uses_moe(cfg, i))
+    if kind == "mamba":
+        h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+        a, cache = mamba.mamba_block(p["mamba"], h, cfg)
+        return _with_mlp(p, x, a, cfg, _uses_moe(cfg, i)), cache
+    if kind == "mlstm":
+        return xlstm.mlstm_block(p, x, cfg)
+    return xlstm.slstm_block(p, x, cfg)
 
 
 def prefill(params, cfg, tokens, frontend=None):
     """Run the full prompt; returns (last-token logits (B,1,V) float32,
-    caches sized S: a list of per-layer {"k", "v"} or {"ckv", "kr"}), which
-    match ``init_decode_caches(cfg, B, S, ...)`` for the decode side."""
-    check_supported(cfg)
+    caches sized S), which match ``init_decode_caches(cfg, B, S, ...)`` for
+    the decode side: attention layers store their k/v (ckv/kr under MLA),
+    recurrent layers their end-of-prompt state."""
+    kinds = group_layer_kinds(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = embed_tokens(params, cfg, tokens, frontend)
     caches = []
     for p in params["blocks"]:
-        x, kv = _attn_layer_prefill(p, x, cfg, positions, _uses_moe(cfg, 0))
-        caches.append(kv)
+        if cfg.block_kind == "attn":
+            x, kv = _attn_layer_prefill(p, x, cfg, positions,
+                                        _uses_moe(cfg, 0))
+            caches.append(kv)
+            continue
+        group = {}
+        for i, kind in enumerate(kinds):
+            x, group[f"l{i}"] = _layer_prefill(p[f"l{i}"], x, cfg, positions,
+                                               kind, i)
+        caches.append(group)
     return lm_logits(params, cfg, x[:, -1:, :]), caches

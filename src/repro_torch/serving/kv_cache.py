@@ -28,28 +28,41 @@ def kv_bytes_per_token(cfg) -> int:
     return per_layer * n_attn * 2  # bf16
 
 
+# the attention caches' keys: their dim 1 is the sequence (B, S, ...)
+SEQUENCE_LEAVES = ("k", "v", "ckv", "kr")
+
+
 def pad_prefill_caches(caches, max_len: int):
     """Grow prefill-produced caches (S = prompt_len) to decode-sized
     buffers (S = max_len) — the KV-link handoff: the decode pool receives
     page-transferred caches and continues writing at position prompt_len.
 
-    The port's caches are a list of per-layer ``{"k", "v"}`` tensors of
-    shape (B, S, Hkv, hd) (the JAX package's are (groups, B, S, ...)): the
-    sequence axis, dim 1, is zero-padded on each tensor's own device.
-    Anything else passes through as-is."""
+    The port's caches are lists of per-layer (or per-group) dicts. The
+    attention caches, selected by key (``k``/``v`` (B, S, Hkv, hd), MLA's
+    ``ckv``/``kr`` (B, S, r)), are zero-padded on their sequence axis,
+    dim 1, on each tensor's own device. Everything else passes through
+    as-is: recurrent states (mLSTM ``C``/``n``/``m``/``conv``, sLSTM
+    ``h``/``c``/``n``/``m``, mamba ``h``/``conv``) are O(1) per request,
+    and the encoder-decoder's cross ``ck``/``cv`` stay at the encoder's
+    length. This is the reference's stated contract ("recurrent states
+    transfer as-is"); the reference's code pads every leaf of 4 or more
+    dims, recurrent states and cross keys included."""
     import torch.nn.functional as F
 
-    def one(leaf):
-        if leaf.ndim == 4 and leaf.shape[1] < max_len:  # (B,S,Hkv,hd)
-            # F.pad lists (left, right) pairs from the LAST dim backwards
-            return F.pad(leaf, (0, 0, 0, 0, 0, max_len - leaf.shape[1]))
+    def one(name, leaf):
+        if name in SEQUENCE_LEAVES and leaf.shape[1] < max_len:
+            pad = [0, 0] * (leaf.ndim - 2) + [0, max_len - leaf.shape[1]]
+            return F.pad(leaf, pad)  # (left, right) pairs from the last dim
         return leaf
 
-    if isinstance(caches, dict):
-        return {k: pad_prefill_caches(v, max_len) for k, v in caches.items()}
-    if isinstance(caches, (list, tuple)):
-        return type(caches)(pad_prefill_caches(c, max_len) for c in caches)
-    return one(caches)
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(c) for c in tree)
+        return one(name, tree)
+
+    return walk(caches)
 
 
 @dataclasses.dataclass

@@ -259,7 +259,12 @@ def _randn(shape, seed, dtype, dev):
     (2, 77, 77, 14, 2, 64, True), (1, 100, 300, 4, 4, 16, True),
     (1, 300, 100, 2, 1, 256, True), (4, 512, 512, 40, 10, 128, True),
     (2, 200, 333, 8, 2, 64, False), (2, 333, 77, 8, 2, 128, False),
-    (4, 512, 512, 16, 16, 128, True)])  # deepseek-moe-16b's prefill
+    (4, 512, 512, 16, 16, 128, True),  # deepseek-moe-16b's prefill
+    # seamless-m4t's decoder (causal), encoder (not) and cross-attention
+    # (Sq != Sk) at hd 64, g 1; jamba's attention at hd 128, g 8
+    (4, 512, 512, 16, 16, 64, True), (4, 512, 512, 16, 16, 64, False),
+    (4, 512, 300, 16, 16, 64, False), (2, 77, 512, 16, 16, 64, False),
+    (4, 512, 512, 64, 8, 128, True)])
 def test_flash_attention_matches_plain(cuda, dtype, B, Sq, Sk, H, Hkv, hd,
                                        causal):
     from repro_torch.kernels import flash_attention, ops, ref
@@ -298,7 +303,9 @@ def test_flash_attention_reads_strided_views(cuda):
     (4, 544, 40, 10, 128, 0), (4, 544, 40, 10, 128, 271),
     (4, 544, 40, 10, 128, 543), (2, 300, 14, 2, 64, 299),
     (1, 64, 1, 1, 256, 1000), (2, 40, 12, 1, 16, 17),
-    (4, 544, 16, 16, 128, 0), (4, 544, 16, 16, 128, 543)])  # deepseek-moe-16b
+    (4, 544, 16, 16, 128, 0), (4, 544, 16, 16, 128, 543),  # deepseek-moe-16b
+    (4, 544, 16, 16, 64, 0), (4, 544, 16, 16, 64, 543),  # seamless-m4t
+    (4, 544, 64, 8, 128, 0), (4, 544, 64, 8, 128, 543)])  # jamba
 def test_decode_attention_matches_plain(cuda, dtype, B, S, H, Hkv, hd,
                                         cur_len):
     from repro_torch.kernels import decode_attention, ops, ref
@@ -532,7 +539,7 @@ def _decode_chunk(B, S, Hkv):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [64, 128, 256])
-@pytest.mark.parametrize("g", [1, 4, 7, 12, 16])
+@pytest.mark.parametrize("g", [1, 4, 7, 8, 12, 16])
 @pytest.mark.parametrize("where", ["zero", "chunk-1", "chunk", "end"])
 def test_decode_ring_matches_plain(cuda, where, g, hd, dtype):
     """cur_len at the first position, on both sides of a chunk (and ring
@@ -712,6 +719,140 @@ def test_mla_on_card_matches_cpu(cuda, width):
     for name in tc:
         torch.testing.assert_close(tc[name].cpu(), cc[name], rtol=1e-4,
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM, mamba and the encoder-decoder: torch ops on the card against the
+# CPU (no TPU kernel stands behind the recurrences), and their servers
+# ---------------------------------------------------------------------------
+
+
+def _published(arch, **cut):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), dtype="float32", **cut)
+
+
+@pytest.mark.parametrize("width", ["smoke", "published"])
+def test_mlstm_chunk_on_card_matches_cpu(cuda, width):
+    """The mLSTM block's chunked forward (two chunks of 16) and its end
+    state, then 4 decode steps, card against CPU (float32, 1e-4), at the
+    smoke size and xlstm-350m's widths (d_model 1024, 4 heads of 512)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import xlstm
+
+    cfg = get_smoke_config("xlstm-350m") if width == "smoke" \
+        else _published("xlstm-350m")
+    cpu_p = xlstm.init_mlstm(torch.Generator().manual_seed(3), cfg,
+                             torch.float32)
+    card_p = _to(cpu_p, cuda)
+    x = _randn((2, 32, cfg.d_model), 30, torch.float32, "cpu")
+    out, cache = xlstm.mlstm_block(card_p, x.to(cuda), cfg, chunk=16)
+    want, want_cache = xlstm.mlstm_block(cpu_p, x, cfg, chunk=16)
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)
+    for i in range(4):
+        step = x[:, i:i + 1]
+        o, cache = xlstm.mlstm_decode_step(card_p, step.to(cuda), cache, cfg)
+        w, want_cache = xlstm.mlstm_decode_step(cpu_p, step, want_cache, cfg)
+        torch.testing.assert_close(o.cpu(), w, rtol=1e-4, atol=1e-4)
+    for name in cache:
+        torch.testing.assert_close(cache[name].cpu(), want_cache[name],
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("width", ["smoke", "published"])
+def test_slstm_step_on_card_matches_cpu(cuda, width):
+    """The sLSTM block over 16 tokens (its time loop) and 4 decode steps,
+    card against CPU (float32, 1e-4)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import xlstm
+
+    cfg = get_smoke_config("xlstm-350m") if width == "smoke" \
+        else _published("xlstm-350m")
+    cpu_p = xlstm.init_slstm(torch.Generator().manual_seed(4), cfg,
+                             torch.float32)
+    card_p = _to(cpu_p, cuda)
+    x = _randn((2, 20, cfg.d_model), 31, torch.float32, "cpu")
+    out, cache = xlstm.slstm_block(card_p, x[:, :16].to(cuda), cfg)
+    want, want_cache = xlstm.slstm_block(cpu_p, x[:, :16], cfg)
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)
+    for i in range(16, 20):
+        step = x[:, i:i + 1]
+        o, cache = xlstm.slstm_decode_step(card_p, step.to(cuda), cache, cfg)
+        w, want_cache = xlstm.slstm_decode_step(cpu_p, step, want_cache, cfg)
+        torch.testing.assert_close(o.cpu(), w, rtol=1e-4, atol=1e-4)
+    for name in cache:
+        torch.testing.assert_close(cache[name].cpu(), want_cache[name],
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("width", ["smoke", "published"])
+def test_mamba_scan_on_card_matches_cpu(cuda, width):
+    """The mamba block's chunked scan (two chunks of 16; h carried across)
+    and its end state, then 4 decode steps, card against CPU (float32,
+    1e-4), at the smoke size and jamba's widths (d_model 8192, d_inner
+    16384, d_state 16)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import mamba
+
+    cfg = get_smoke_config("jamba-1.5-large-398b") if width == "smoke" \
+        else _published("jamba-1.5-large-398b")
+    cpu_p = mamba.init_mamba(torch.Generator().manual_seed(5), cfg,
+                             torch.float32)
+    card_p = _to(cpu_p, cuda)
+    x = _randn((2, 32, cfg.d_model), 32, torch.float32, "cpu")
+    out, cache = mamba.mamba_block(card_p, x.to(cuda), cfg, chunk=16)
+    want, want_cache = mamba.mamba_block(cpu_p, x, cfg, chunk=16)
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)
+    for i in range(4):
+        step = x[:, i:i + 1]
+        o, cache = mamba.mamba_decode_step(card_p, step.to(cuda), cache, cfg)
+        w, want_cache = mamba.mamba_decode_step(cpu_p, step, want_cache, cfg)
+        torch.testing.assert_close(o.cpu(), w, rtol=1e-4, atol=1e-4)
+    for name in cache:
+        torch.testing.assert_close(cache[name].cpu(), want_cache[name],
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "seamless-m4t-large-v2",
+                                  "jamba-1.5-large-398b"])
+def test_family_server_on_card_matches_cpu(cuda, arch):
+    """The three families' smoke servers generate the CPU server's tokens
+    from the same weights (float32, TF32 off). B3 runs once an attention
+    layer at prefill (and once an encoder layer and a cross-attention under
+    encdec), B4 once a decoder attention layer a step; xLSTM has none."""
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import VectorPoolConfig
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch.serve import RealServer
+    from repro_torch.models import transformer
+
+    cfg = get_smoke_config(arch)
+    pool = VectorPoolConfig(num_vectors=1500, dim=64, max_requests=16,
+                            top_m=16, task_batch=512, visited_slots=256,
+                            top_k=5)
+    cpu = RealServer(cfg, pool, rag_interval=4, device="cpu")
+    card = RealServer(cfg, pool, rag_interval=4, device=cuda,
+                      params=convert.lm_params_from_numpy(
+                          cfg, convert.lm_params_to_numpy(cpu.params), cuda))
+    prompts = np.random.default_rng(0).integers(
+        0, 500, size=(2, 16)).astype(np.int32)
+    if cfg.block_kind == "encdec":
+        n_dec = cfg.num_layers - cfg.encoder_layers
+        b3, b4 = cfg.encoder_layers + 2 * n_dec, n_dec
+    else:
+        kinds = transformer.group_layer_kinds(cfg)
+        b3 = b4 = kinds.count("attn") * transformer.num_groups(cfg)
+    f0 = flash_attention.launches["flash_attention"]
+    d0 = decode_attention.launches["decode_attention"]
+    toks, _ = card.generate(prompts, max_new=8)
+    assert flash_attention.launches["flash_attention"] - f0 == b3
+    assert decode_attention.launches["decode_attention"] - d0 == b4 * (16 + 8)
+    want, _ = cpu.generate(prompts, max_new=8)
+    np.testing.assert_array_equal(toks, want)
 
 
 def test_search_batch_on_card_matches_cpu(cuda):

@@ -1,8 +1,11 @@
 """The port's models against the JAX package on the CPU: layers,
 attention, the transformer stack and the model zoo on the smoke configs of
-every ported arch (the five dense GQA archs and the DeepSeek family: MoE,
-MLA, MTP), with the JAX parameters carried across by
-``convert.lm_params_from_numpy``. Float32 throughout; 1e-5 where the two
+every attention-block arch (``block_kind="attn"``: the five dense GQA
+archs and the DeepSeek family: MoE, MLA, MTP), with the JAX parameters
+carried across by ``convert.lm_params_from_numpy``. The xLSTM, mamba
+hybrid and encoder-decoder families have files of their own
+(``test_torch_xlstm.py``, ``test_torch_mamba.py``,
+``test_torch_encdec.py``). Float32 throughout; 1e-5 where the two
 compute the same sums (matmuls in another order on the two frameworks'
 CPU backends), looser where stated. A layer's cache is {"k", "v"} (GQA) or
 {"ckv", "kr"} (MLA)."""
@@ -23,7 +26,9 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_smoke_config, list_archs  # noqa: E402
 from repro_torch.models import layers, model_zoo, transformer  # noqa: E402
 
-ARCHS = list_archs()
+# the attention-block archs: their caches are per-layer {"k", "v"} or
+# {"ckv", "kr"}, as the tests below read them
+ARCHS = [a for a in list_archs() if get_smoke_config(a).block_kind == "attn"]
 B, S = 2, 20
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -278,7 +283,7 @@ def test_gemma_hd256_greedy_decode_matches_jax(gemma_hd256):
 
 
 # ---------------------------------------------------------------------------
-# conversion, counts, unported families
+# conversion, counts, an unknown block kind
 # ---------------------------------------------------------------------------
 
 
@@ -391,16 +396,16 @@ def test_published_counts_and_flops_equal_jax(arch):
         dataclasses.replace(jcfg, num_layers=1))
 
 
-@pytest.mark.parametrize("change", [  # ids as before the MLA/MoE/MTP cases went
-    pytest.param(dict(block_kind="mamba_attn", attn_every=2), id="change0"),
-    pytest.param(dict(block_kind="xlstm"), id="change3"),
-    pytest.param(dict(block_kind="encdec", encoder_layers=1), id="change4")])
-def test_unported_families_raise(change):
-    cfg = dataclasses.replace(get_smoke_config("phi3-medium-14b"), **change)
+def test_unknown_block_kind_raises():
+    """A block kind the reference has no stack for raises ValueError, as
+    the reference's ``init_group`` and ``group_layer_kinds`` do."""
+    cfg = dataclasses.replace(get_smoke_config("phi3-medium-14b"),
+                              block_kind="nope")
     for call in (lambda: model_zoo.init_params(cfg, device="cpu"),
                  lambda: model_zoo.init_decode_caches(cfg, 1, 4, device="cpu"),
-                 lambda: model_zoo.analytic_param_count(cfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
+                 lambda: model_zoo.analytic_param_count(cfg),
+                 lambda: convert.lm_params_from_numpy(cfg, {}, device="cpu")):
+        with pytest.raises(ValueError, match="nope"):
             call()
 
 

@@ -1,9 +1,9 @@
 """The port's serving building blocks against the JAX package's, exactly:
 ``request`` (``ClusterMetrics`` and its rolling windows, ``RollingWindow``,
 ``slo_good``, ``percentile``), ``kv_link``, ``kv_cache``
-(``PagedKVManager``, ``kv_bytes_per_token`` on every ported config and
+(``PagedKVManager``, ``kv_bytes_per_token`` on every config and
 ``pad_prefill_caches`` on the prefill→decode handoff of
-``test_ivf_and_handoff.py``), the prefill and decode instances of
+``test_ivf_and_handoff.py`` and on every cache kind), the prefill and decode instances of
 ``engine``, every function of the roofline model, ``make_placements``, and
 the ``ShapeConfig`` and ``AutoscalerConfig`` copies."""
 import dataclasses
@@ -187,6 +187,85 @@ def test_pad_prefill_caches_matches_jax_handoff():
                                rtol=1e-4, atol=1e-4)
     # a cache already at (or past) the decode size passes through
     assert tkv.pad_prefill_caches(tc, S)[0]["k"] is tc[0]["k"]
+
+
+HANDOFF_ARCHS = ["gemma-7b", "deepseek-moe-16b", "deepseek-v3-671b",
+                 "xlstm-350m", "seamless-m4t-large-v2", "jamba-1.5-large-398b"]
+
+
+def _pad_attention_leaves(jc, max_len):
+    """The reference's handoff as its docstring states it, done here on the
+    JAX package's caches: the k/v/ckv/kr leaves (g, B, S, ...) padded on
+    axis 2, recurrent states and the cross ck/cv as they are."""
+    import jax
+    import jax.numpy as jnp
+
+    def one(path, leaf):
+        if path[-1].key in tkv.SEQUENCE_LEAVES:
+            pad = [(0, 0)] * leaf.ndim
+            pad[2] = (0, max_len - leaf.shape[2])
+            return jnp.pad(leaf, pad)
+        return leaf
+
+    return jax.tree_util.tree_map_with_path(one, jc)
+
+
+@pytest.mark.parametrize("arch", HANDOFF_ARCHS)
+def test_handoff_keeps_every_cache_kind(arch):
+    """Prefill 16 tokens, hand the caches over with ``pad_prefill_caches``
+    to 20, decode 4 more: the logits equal the JAX package's prefill,
+    attention leaves padded, decode (1e-4). Attention caches grow on dim 1
+    (k/v; MLA's 3-D ckv/kr too); recurrent states (mLSTM, sLSTM, mamba)
+    and the cross ck/cv pass through unchanged."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import model_zoo as jzoo
+    from repro_torch import convert
+    from repro_torch.models import model_zoo as tzoo
+
+    jcfg = jconfigs.get_smoke_config(arch)
+    tcfg = tconfigs.get_smoke_config(arch)
+    jparams = jzoo.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = convert.lm_params_from_numpy(tcfg, jax.device_get(jparams),
+                                           device="cpu")
+    B, S, extra = 2, 16, 4
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, 500, (B, S + extra)).astype(np.int32)
+    batch = {"tokens": toks[:, :S]}
+    if tcfg.block_kind == "encdec":
+        batch["frames"] = rng.normal(size=(B, S, tcfg.d_model)).astype(
+            np.float32)
+    _, jc = jzoo.prefill_fn(jcfg, jparams,
+                            {k: jnp.asarray(v) for k, v in batch.items()})
+    jc = _pad_attention_leaves(jc, S + extra)
+    _, tc = tzoo.prefill_fn(tcfg, tparams,
+                            {k: torch.as_tensor(v) for k, v in batch.items()})
+    padded = tkv.pad_prefill_caches(tc, S + extra)
+    for c, p in zip(_leaves_by_name(padded), _leaves_by_name(tc)):
+        (name, new), (_, old) = c, p
+        if name in tkv.SEQUENCE_LEAVES:
+            assert new.shape[1] == S + extra
+            assert torch.equal(new[:, :S], old) and not new[:, S:].any()
+        else:
+            assert new is old
+    tc = padded
+    for i in range(extra):
+        step = toks[:, S + i:S + i + 1]
+        jl, jc = jzoo.decode_fn(jcfg, jparams, jnp.asarray(step), jc,
+                                jnp.int32(S + i))
+        tl, tc = tzoo.decode_fn(tcfg, tparams, torch.as_tensor(step), tc,
+                                S + i)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl, np.float32),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def _leaves_by_name(tree, name=None):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _leaves_by_name(v, k)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves_by_name(v)]
+    return [(name, tree)]
 
 
 # ---------------------------------------------------------------- engine

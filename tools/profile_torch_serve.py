@@ -2,13 +2,18 @@
 """Where the port's serving path spends its time on the card: the model of
 a serving cell (``chip_smoke.py`` phase 7, phi3-medium-14b; phase 9,
 gemma-7b; phase 12, deepseek-moe-16b; phase 13, deepseek-v3-671b cut to
-depth 1: full width, bf16, random weights from seed 0, 4 requests of 512
-prompt tokens).
+depth 1; phase 16, xlstm-350m; phase 17, seamless-m4t-large-v2 with its
+stub frames; phase 18, jamba-1.5-large-398b cut to one group of 8 layers
+and 8 experts: full width, bf16, random weights from seed 0, 4 requests of
+512 prompt tokens).
 
     python3 tools/profile_torch_serve.py                   # phi3-serve, one NVIDIA GPU
     python3 tools/profile_torch_serve.py --arch gemma-7b   # gemma-serve
     python3 tools/profile_torch_serve.py --arch deepseek-moe-16b  # deepseek-moe-serve
     python3 tools/profile_torch_serve.py --arch deepseek-v3-671b  # deepseek-v3-L1-serve
+    python3 tools/profile_torch_serve.py --arch xlstm-350m  # xlstm-serve
+    python3 tools/profile_torch_serve.py --arch seamless-m4t-large-v2  # seamless-serve
+    python3 tools/profile_torch_serve.py --arch jamba-1.5-large-398b  # jamba-L8-serve
 
 For one prefill (4 x 512 tokens) and for decode steps at cur_len 512 and
 on (the decode loop's new tokens) it prints the host wall per call,
@@ -76,7 +81,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="phi3-medium-14b",
                     choices=["phi3-medium-14b", "gemma-7b", "deepseek-moe-16b",
-                             "deepseek-v3-671b"],
+                             "deepseek-v3-671b", "xlstm-350m",
+                             "seamless-m4t-large-v2", "jamba-1.5-large-398b"],
                     help="the serving cell's model")
     args = ap.parse_args()
     import dataclasses
@@ -92,10 +98,16 @@ def main():
     cfg = get_config(args.arch)
     if args.arch == "deepseek-v3-671b":  # two layers would not fit in bf16
         cfg = dataclasses.replace(cfg, num_layers=1)
+    if args.arch == "jamba-1.5-large-398b":  # one group of 8, 8 experts
+        cfg = dataclasses.replace(cfg, num_layers=8, moe=dataclasses.replace(
+            cfg.moe, num_experts=8))
     params = model_zoo.init_params(cfg, seed=0, device="cuda")
     prompts = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(B, S)).astype(np.int32), device="cuda")
     batch = {"tokens": prompts}
+    if model_zoo.is_encdec(cfg):  # RealServer's stub frames
+        batch["frames"] = torch.ones((B, S, cfg.d_model), device="cuda",
+                                     dtype=params["embed"].dtype) * 0.1
 
     def prefill():
         return model_zoo.prefill_fn(cfg, params, batch)
