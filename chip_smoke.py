@@ -54,19 +54,19 @@ line is printed only when every phase passed):
     rotating input sets, 111 MB) and a warm one (one set), each call
     replayed from a CUDA graph of it (SDPA's and the plain version's
     several kernels then run without the host's gaps between them)
-  7 the serving path at full width: RealServer on phi3-medium-14b (40
-    layers, d_model 5120, bf16, random weights from seed 0) with serve.py's
-    pool, 4 requests of 512 prompt tokens, 32 new tokens, a RAG probe every
-    8 tokens; launches of every kernel on that path (all 40 prefill
-    launches on flash_wgmma)
+  7 the serving path at full width: RealServer on phi3-medium-14b (its 40
+    layers cut to 20, d_model 5120, bf16, random weights from seed 0) with
+    serve.py's pool, 4 requests of 512 prompt tokens, 32 new tokens, a RAG
+    probe every 8 tokens; launches of every kernel on that path (all 20
+    prefill launches on flash_wgmma)
   8 the same entry point on the card and on the CPU: phi3's widths cut to
     2 layers, float32, one set of weights; equal tokens, close logits; the
     card's prefill on flash_fp32
   9 the serving path at gemma-7b's full width: RealServer on gemma-7b (28
-    layers, d_model 3072, 16 heads over 16 kv heads at hd 256, GeGLU,
-    bf16, random weights from seed 0), the same pool and traffic as
-    phase 7; every logit finite, all 28 prefill launches on
-    flash_wgmma256, B4 launched 28 x (512 + 32) times
+    layers cut to 14, d_model 3072, 16 heads over 16 kv heads at hd 256,
+    GeGLU, bf16, random weights from seed 0), the same pool and traffic as
+    phase 7; every logit finite, all 14 prefill launches on
+    flash_wgmma256, B4 launched 14 x (512 + 32) times
  10 the sharded, megabatched pool at full size (sharded-sift1m-shape): the
     same corpus in 4 balanced-k-means shards (exact graphs built on the
     card) x 2 replicas = 8 lanes of one GroupEngine, the answer cache on;
@@ -93,11 +93,12 @@ line is printed only when every phase passed):
     64 in 4 shards) with the autoscaler and the same kinds of faults, on
     the card and on the CPU: equal summaries, signals, scale events and
     vector results
- 12 the serving path on deepseek-moe-16b at its published size (MoE: 28
-    layers, d_model 2048, 16/16 heads at hd 128, 64 routed experts of 1408
-    top-6 and 2 shared, bf16, 16.88e9 parameters, random weights from seed
-    0), phase 7's pool and traffic: every logit finite, all 28 prefill
-    launches on flash_wgmma, B4 launched 28 x 544 times, the (token,
+ 12 the serving path on deepseek-moe-16b at its published widths (MoE: 28
+    layers cut to 14, d_model 2048, 16/16 heads at hd 128, 64 routed
+    experts of 1408 top-6 and 2 shared, bf16, 16.88e9 parameters whole,
+    random weights from seed 0), phase 7's pool and traffic: every logit
+    finite, all 14 prefill launches on flash_wgmma, B4 launched 14 x 544
+    times, the (token,
     expert) pairs capacity drops at prefill, the kernels of a decode step
     (profiler), peak memory
  13 the same on deepseek-v3-671b at its published widths cut to depth 1
@@ -132,12 +133,35 @@ line is printed only when every phase passed):
     jamba's smoke config, float32 (equal tokens, close logits); one jamba
     mamba layer and one xLSTM mLSTM + sLSTM pair at published widths,
     forward and 8 decode steps
+ 20 training: the port's Trainer on xlstm-350m whole (launch/train.py's
+    default arch and flags: 24 layers, d_model 1024, bf16, batch 8 x 128
+    tokens of the synthetic pipeline, AdamW lr 1e-3, warm-up 20), 20 steps
+    with a checkpoint every 10, then a fresh Trainer on the same directory,
+    step 20's checkpoint removed, resumes at 10 and runs to 20, both runs
+    with deterministic algorithms: the loss falls, the restored
+    params and moments equal the saved ones bit for bit, the resumed losses
+    within 1e-3 (relative) of the uninterrupted run's; s/step, kernels a
+    step (profiler), peak memory, the checkpoint's bytes and write time
+ 21 training examples/train_100m.py's --full-100m config (lm-100m: 12
+    layers, d_model 768, 12/12 heads, f32) for 200 steps at the example's
+    defaults: the loss falls by at least 1.0; s/step, kernels a step; then
+    attend_blocked forward + backward at its shape (8, 128, 12, 64) f32
+    beside scaled_dot_product_attention forward + backward (a yardstick)
+ 22 training on the card against the CPU on five float32 smoke configs
+    (gemma-7b, deepseek-v3-671b, jamba-1.5-large-398b, xlstm-350m,
+    seamless-m4t-large-v2), one set of weights and one batch: loss and
+    metrics within 1e-4 (relative), every gradient leaf within 1e-3 of its
+    leaf's max |g|, three Trainer steps' losses within 1e-4
+    No kernel of B1-B4 launches in phases 20-22, by design: training
+    attends through attend_blocked (torch ops under autograd), the kernels
+    having no backward.
 
 The pool's and the cluster's clocks are simulated and priced by the JAX
 package's V5E model; phase 11 prints its simulated TTFT and TPOT labelled
 so, and no other latency from that clock is printed. Every time printed here is a host
 wall clock or a CUDA-event time measured on the card in this run.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -178,6 +202,8 @@ KERNELS = {
                          "src/repro/kernels/decode_attention.py:22"),
 }
 DISTANCE = ("distance_slot_gather", "distance_onehot")
+# checkpoints of the training phases (build/ is git-ignored; removed after)
+CKPT = ROOT / "build" / "chip_smoke_ckpt"
 # the serving path's pool: launch/serve.py's main()
 SERVE_POOL = dict(num_vectors=2000, dim=64, max_requests=16, top_m=16,
                   task_batch=512, visited_slots=256, top_k=5)
@@ -756,15 +782,24 @@ def leaves(tree):
     return [tree]
 
 
-def kernels_per_call(fn, n):
+def kernels_per_call(fn, n, cpu=True):
     """Device kernels launched per call of ``fn`` over ``n`` calls, read
-    from a ``torch.profiler`` trace (written under build/profile/)."""
+    from a ``torch.profiler`` trace (written under build/profile/).
+    ``cpu=False`` records the device's activity alone (a train step's
+    host ops would make the trace several times larger)."""
+    return kernel_stats(fn, n, cpu)[0]
+
+
+def kernel_stats(fn, n, cpu=True):
+    """(kernels a call, ms a call the device spent in them: the sum of
+    their durations) of ``fn`` over ``n`` calls, from a ``torch.profiler``
+    trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -772,9 +807,9 @@ def kernels_per_call(fn, n):
     out.mkdir(parents=True, exist_ok=True)
     trace = out / "chip_smoke_decode_trace.json"
     prof.export_chrome_trace(str(trace))
-    events = json.loads(trace.read_text())["traceEvents"]
-    return sum(e.get("ph") == "X" and e.get("cat") == "kernel"
-               for e in events) / n
+    kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    return len(kernels) / n, sum(e["dur"] for e in kernels) / 1e3 / n
 
 
 # leaves the analytic parameter count leaves out: norms, biases, the conv
@@ -823,6 +858,17 @@ def serve_counts(cfg):
     moe_layers = n * sum(transformer._uses_moe(cfg, i)
                          for i, k in enumerate(kinds) if k in ("attn", "mamba"))
     return attn, attn, moe_layers
+
+
+def half_cut(arch):
+    """serve_line's note for a phase run at half its published depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo
+
+    cfg = get_config(arch)
+    return (f" ({cfg.num_layers} layers cut to {cfg.num_layers // 2}, widths "
+            f"kept; the whole model: analytic "
+            f"{model_zoo.analytic_param_count(cfg):,} parameters)")
 
 
 def phase_serve(arch, variant, **cut):
@@ -1722,6 +1768,394 @@ def phase_search_batch(db, graph, queries, true_ids, pool_ext, pool_ids, cfg):
                 same=float((ids == pool_ids).all(axis=1).mean()))
 
 
+def kernel_launches():
+    """Launches of every kernel (B1-B4 and B3's variants) since the last
+    reset."""
+    from repro_torch.kernels import decode_attention, distance, flash_attention
+
+    return {**distance.launches, **flash_attention.launches,
+            **decode_attention.launches}
+
+
+def reset_kernel_launches():
+    from repro_torch.kernels import decode_attention, distance, flash_attention
+
+    for mod in (distance, flash_attention, decode_attention):
+        mod.reset_launches()
+
+
+def check_no_kernel_launch(phase):
+    n = kernel_launches()
+    check(not any(n.values()), f"phase {phase}: training launched {n}")
+    return sum(n.values())
+
+
+def dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def tree_copy(tree):
+    from repro_torch.training.optimizer import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def trees_equal(a, b):
+    """Every leaf of ``a`` equal to ``b``'s bit for bit, dtypes included."""
+    import torch
+
+    from repro_torch.training.optimizer import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def train_step_kernels(tr):
+    """(kernels, the device's busy ms) of one train step on ``tr``'s state
+    (profiler; the step's result is dropped, so the trainer's state is left
+    as it was)."""
+    batch = tr.batch(tr.step)
+    tr.step_fn(tr.params, tr.opt_state, batch)  # warm
+    return kernel_stats(
+        lambda: tr.step_fn(tr.params, tr.opt_state, batch), 1, cpu=False)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` inside the block, the
+    previous mode after. Without it the card's backward accumulates some
+    gradients (the embedding's by index among them) in no fixed order, so
+    two identical steps differ in their last bits and Adam grows that into
+    a different run. cuBLAS on one stream repeats by itself, so its warning
+    is silenced (warn_only)."""
+    import warnings
+
+    import torch
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*CuBLAS.*")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def phase_train_xlstm():
+    """Phase 20: xlstm-350m whole trained by the port's Trainer, a
+    checkpoint every 10 steps, and a fresh Trainer on the same directory
+    with step 20's checkpoint removed, which resumes at step 10; both runs
+    with deterministic algorithms, so the resume can repeat the
+    run bit for bit. Then three steps timed and one profiled in the
+    default mode."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo
+    from repro_torch.training.data import SyntheticLMData
+    from repro_torch.training.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.training.train_loop import Trainer
+
+    cfg = get_config("xlstm-350m")
+    data = SyntheticLMData(cfg.vocab_size, 128, 8, seed=0)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=20)
+    run_dir = CKPT / "xlstm"
+    shutil.rmtree(CKPT, ignore_errors=True)
+    reset_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a = Trainer(cfg, data, opt, checkpoint_dir=str(run_dir),
+                checkpoint_every=10, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(a.params))
+    save, saves = a.ckpt.save, []
+
+    def timed_save(*args):
+        t = time.perf_counter()
+        save(*args)
+        saves.append(time.perf_counter() - t)
+
+    a.ckpt.save = timed_save
+    with deterministic_algorithms():
+        hist = a.run(10, log=None)
+        # the trainer's own peak, before the snapshot below joins it
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        snap = tree_copy({"params": a.params, "m": a.opt_state["m"],
+                          "v": a.opt_state["v"]})
+        ckpt_bytes = dir_bytes(run_dir / "step_00000010")
+        hist += a.run(20, log=None)
+    step_s = list(a.step_s)
+    # the default mode (atomic accumulations allowed): wall and kernels of
+    # a step on the step-20 state, the results dropped
+    k_step, busy_ms = train_step_kernels(a)
+    default_s = []
+    for _ in range(3):
+        t = time.perf_counter()
+        float(a.step_fn(a.params, a.opt_state, a.batch(a.step))[2]["loss"])
+        default_s.append(time.perf_counter() - t)
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a run killed after its step-10 commit: step 20's checkpoint is gone
+    shutil.rmtree(run_dir / "step_00000020")
+    t0 = time.perf_counter()
+    b = Trainer(cfg, data, opt, checkpoint_dir=str(run_dir),
+                checkpoint_every=10, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(b.step == 10 and int(b.opt_state["step"]) == 10,
+          f"the resumed trainer is at step {b.step}, not 10")
+    check(trees_equal(b.params, snap["params"])
+          and trees_equal(b.opt_state["m"], snap["m"])
+          and trees_equal(b.opt_state["v"], snap["v"]),
+          "the restored params or moments differ from the saved ones")
+    del snap
+    with deterministic_algorithms():
+        resumed = b.run(20, log=None)
+    launched = check_no_kernel_launch(20)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(resumed, hist[10:]))
+    check(len(hist) == 20 and len(resumed) == 10, "step counts")
+    check(all(math.isfinite(x) for x in hist + resumed),
+          "a loss is not finite")
+    check(hist[19] < hist[0] and sum(hist[15:]) < sum(hist[:5]),
+          f"the loss did not fall: steps 1, 10, 20: {hist[0]}, {hist[9]}, "
+          f"{hist[19]}; first five {hist[:5]}, last five {hist[15:]}")
+    check(rel <= 1e-3, f"resumed losses {rel:.3g} (relative) off the "
+          "uninterrupted run's")
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT, ignore_errors=True)
+    return dict(cfg=cfg, n_params=n_params,
+                analytic=model_zoo.analytic_param_count(cfg), init_s=init_s,
+                hist=hist, resumed=resumed, rel=rel,
+                bitwise=resumed == hist[10:],
+                step_med=statistics.median(step_s), step_mean=sum(step_s)
+                / len(step_s), step_first=step_s[0], k_step=k_step,
+                default_med=statistics.median(default_s), busy_ms=busy_ms,
+                peak_gib=peak_gib, ckpt_bytes=ckpt_bytes, saves=saves,
+                restore_s=restore_s, launched=launched)
+
+
+def attend_yardstick(B=8, S=128, H=12, hd=64):
+    """attend_blocked forward + backward against SDPA forward + backward
+    on the same f32 inputs (causal): the device's busy ms a call (the sum
+    of its kernels' durations, profiler: the host issues these calls
+    slower than the card runs them, so CUDA events would time the host),
+    kernels a call, the host wall a call, and their outputs' and
+    gradients' largest difference."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import attend_blocked
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v, gout = (torch.randn((B, S, H, hd), generator=g, device="cuda")
+                     for _ in range(4))
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def blocked(q_, k_, v_):
+        out = attend_blocked(q_, k_, v_, pos, pos, causal=True)
+        return (out, *torch.autograd.grad(out, (q_, k_, v_), gout))
+
+    def sdpa(q_, k_, v_):
+        out = F.scaled_dot_product_attention(
+            q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+            is_causal=True).transpose(1, 2)
+        return (out, *torch.autograd.grad(out, (q_, k_, v_), gout))
+
+    err = max((a - b).abs().max().item()
+              for a, b in zip(blocked(*leaves), sdpa(*leaves)))
+    out = dict(err=err, shape=(B, S, H, hd))
+    for key, fn in (("blocked", blocked), ("sdpa", sdpa)):
+        for _ in range(5):
+            fn(*leaves)
+        out[key + "_wall_ms"] = host_ms(fn, [leaves], n=50)
+        out[key + "_kernels"], out[key + "_ms"] = kernel_stats(
+            lambda: fn(*leaves), 10)
+    return out
+
+
+def phase_train_100m():
+    """Phase 21: examples/train_100m.py's --full-100m config, 200 steps at
+    the example's defaults (batch 8 x 128, AdamW 6e-4, warm-up 50, a
+    checkpoint every 50), then the attention yardstick at its shape."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from repro_torch.examples import train_100m
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = train_100m.make_cfg(True)
+    shutil.rmtree(CKPT, ignore_errors=True)
+    reset_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = train_100m.make_trainer(cfg, 8, 128, str(CKPT / "lm100m"), "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(tr.params))
+    hist = tr.run(200, log=None)
+    wall_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    k_step, busy_ms = train_step_kernels(tr)
+    launched = check_no_kernel_launch(21)
+    check(all(math.isfinite(x) for x in hist), "a loss is not finite")
+    check(hist[-1] <= hist[0] - 1.0,
+          f"lm-100m's loss fell from {hist[0]} to {hist[-1]}, not by 1.0")
+    steps = sorted(CKPT.joinpath("lm100m").glob("step_*"))
+    step_s = list(tr.step_s)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT, ignore_errors=True)
+    return dict(cfg=cfg, n_params=n_params, hist=hist, wall_s=wall_s,
+                step_med=statistics.median(step_s), k_step=k_step,
+                busy_ms=busy_ms, peak_gib=peak_gib, launched=launched,
+                ckpts=[p.name for p in steps], yard=attend_yardstick())
+
+
+def phase_train_card_vs_cpu():
+    """Phase 22: loss, metrics and gradients, then three Trainer steps, on
+    the card and on the CPU from one set of weights, on five float32 smoke
+    configs (tied head and GeGLU; MLA, MoE aux and MTP; mamba with
+    moe_every; xLSTM; the encoder-decoder)."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model_zoo
+    from repro_torch.training.data import SyntheticEncDecData, SyntheticLMData
+    from repro_torch.training.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.training.train_loop import Trainer, value_and_grad
+
+    def data(cfg, seq, batch, seed):
+        if model_zoo.is_encdec(cfg):
+            return SyntheticEncDecData(cfg.vocab_size, seq, batch,
+                                       cfg.d_model, seed=seed)
+        return SyntheticLMData(cfg.vocab_size, seq, batch, seed=seed)
+
+    reset_kernel_launches()
+    out = {}
+    for arch in ("gemma-7b", "deepseek-v3-671b", "jamba-1.5-large-398b",
+                 "xlstm-350m", "seamless-m4t-large-v2"):
+        cfg = get_smoke_config(arch)
+        t0 = time.perf_counter()
+        weights = convert.lm_params_to_numpy(
+            model_zoo.init_params(cfg, 0, device="cpu"))
+        params = {dev: convert.lm_params_from_numpy(cfg, weights, dev)
+                  for dev in ("cuda", "cpu")}
+        batch = data(cfg, 24, 2, 1).batch_at(0)
+        res = {dev: value_and_grad(cfg, params[dev], {
+            k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+            for dev in ("cuda", "cpu")}
+        (lg, mg, gg), (lc, mc, gc_) = res["cuda"], res["cpu"]
+        rel = {k: abs(float(mg[k]) - float(mc[k])) / max(abs(float(mc[k])),
+                                                          1e-30)
+               for k in mc}
+        check(mg.keys() == mc.keys() and all(
+            r <= 1e-4 or abs(float(mc[k])) < 1e-7 for k, r in rel.items()),
+            f"{arch}: metrics card vs CPU {rel}")
+        g_err = max(
+            ((a.cpu().float() - b.float()).abs().max()
+             / b.float().abs().max().clamp(min=1e-30)).item()
+            for a, b in zip(tree_leaves(gg), tree_leaves(gc_)))
+        check(g_err <= 1e-3, f"{arch}: a gradient leaf {g_err:.3g} of its "
+              "max |g| off the CPU's")
+        hists = {dev: Trainer(cfg, data(cfg, 16, 4, 2),
+                              AdamWConfig(lr=1e-3, warmup_steps=2),
+                              device=dev, params=params[dev]).run(3, log=None)
+                 for dev in ("cuda", "cpu")}
+        h_rel = max(abs(x - y) / abs(y)
+                    for x, y in zip(hists["cuda"], hists["cpu"]))
+        check(h_rel <= 1e-4, f"{arch}: Trainer losses card {hists['cuda']} "
+              f"vs CPU {hists['cpu']}")
+        out[arch] = dict(loss=float(lg), rel=max(rel.values()), g_err=g_err,
+                         h_rel=h_rel, hist=hists["cuda"],
+                         wall_s=time.perf_counter() - t0)
+    out["launched"] = check_no_kernel_launch(22)
+    torch.cuda.empty_cache()
+    return out
+
+
+def training_phases(smi):
+    """Phases 20-22, each printed on a line of its own. Returns the
+    kernels' launches over the three (0: checked in each phase)."""
+    no_kernel = ("B1-B4 launches 0 (by design: training attends through "
+                 "attend_blocked, torch ops under autograd; the kernels have "
+                 "no backward)")
+    t0 = time.perf_counter()
+    tx = phase_train_xlstm()
+    h = tx["hist"]
+    same = ("bit for bit" if tx["bitwise"] else "not bit for bit") + \
+        ", both runs with deterministic algorithms"
+    print(f"phase 20 train {tx['cfg'].name} whole (24 layers, d_model 1024, "
+          f"{tx['cfg'].dtype}; analytic {tx['analytic']:,} parameters, "
+          f"{tx['n_params']:,} weights with norms and biases, made in "
+          f"{tx['init_s']:.1f} s): Trainer on SyntheticLMData("
+          f"{tx['cfg'].vocab_size}, 128, 8, seed 0), AdamW lr 1e-3 warm-up "
+          f"20, a checkpoint every 10"
+          f" | loss at steps 1, 10, 20: {h[0]:.4f}, {h[9]:.4f}, {h[19]:.4f} "
+          f"(falls: step 20 below step 1, steps 16-20 below steps 1-5 on "
+          f"average: {sum(h[15:]) / 5:.4f} vs {sum(h[:5]) / 5:.4f}) | s/step "
+          f"with deterministic algorithms median {tx['step_med']:.4f}, mean "
+          f"{tx['step_mean']:.4f}, first {tx['step_first']:.4f}; in the "
+          f"default mode {tx['default_med']:.4f} (median of 3), "
+          f"{tx['k_step']:.0f} kernels a step, the device busy "
+          f"{tx['busy_ms']:.1f} ms of it (profiler; busy share "
+          f"{tx['busy_ms'] / 1e3 / tx['default_med']:.4f}); peak allocated "
+          f"{tx['peak_gib']:.2f} GiB | checkpoint {tx['ckpt_bytes']:,} B, "
+          f"written in {', '.join(f'{x:.2f}' for x in tx['saves'])} s, "
+          f"restored in {tx['restore_s']:.2f} s: params and moments equal to "
+          f"the saved ones bit for bit | resumed at step 10, steps 11-20: "
+          f"losses within {tx['rel']:.3g} (relative; 1e-3) of the "
+          f"uninterrupted run's ({same}) "
+          f"| {no_kernel} | {smi} | {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    t1 = phase_train_100m()
+    h, y = t1["hist"], t1["yard"]
+    print(f"phase 21 train {t1['cfg'].name} (examples/train_100m.py "
+          f"--full-100m: 12 layers, d_model 768, 12/12 heads, f32, "
+          f"{t1['n_params']:,} weights): 200 steps of 8 x 128 tokens, AdamW "
+          f"6e-4 warm-up 50, checkpoints {t1['ckpts']} | loss {h[0]:.4f} -> "
+          f"{h[-1]:.4f} (fell {h[0] - h[-1]:.4f}; >= 1.0), s/step median "
+          f"{t1['step_med']:.4f}, {t1['wall_s']:.1f} s for 200 steps with "
+          f"checkpoints, {t1['k_step']:.0f} kernels a step, the device busy "
+          f"{t1['busy_ms']:.1f} ms of it (profiler; busy share "
+          f"{t1['busy_ms'] / 1e3 / t1['step_med']:.4f}), peak "
+          f"allocated {t1['peak_gib']:.2f} GiB | yardstick at {y['shape']} "
+          f"f32 causal, forward + backward: attend_blocked device busy "
+          f"{y['blocked_ms']:.5f} ms in {y['blocked_kernels']:.0f} kernels, "
+          f"host wall {y['blocked_wall_ms']:.4f} ms; "
+          f"scaled_dot_product_attention device busy {y['sdpa_ms']:.5f} ms "
+          f"in {y['sdpa_kernels']:.0f} kernels "
+          f"({y['blocked_ms'] / y['sdpa_ms']:.2f}x), "
+          f"host wall {y['sdpa_wall_ms']:.4f} ms; outputs "
+          f"and gradients within {y['err']:.3g} | {no_kernel} | {smi} | "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    tc = phase_train_card_vs_cpu()
+    print("phase 22 train card vs cpu (f32 smoke configs, one set of weights "
+          "and one batch): " + "; ".join(
+              f"{arch}: loss {r['loss']:.6f}, metrics within {r['rel']:.3g} "
+              f"(1e-4), gradient leaves within {r['g_err']:.3g} of their max "
+              f"|g| (1e-3), 3 Trainer steps {[round(x, 5) for x in r['hist']]}"
+              f" within {r['h_rel']:.3g} (1e-4), {r['wall_s']:.1f} s"
+              for arch, r in tc.items() if arch != "launched")
+          + f" | {no_kernel} | {time.perf_counter() - t0:.1f} s", flush=True)
+    return tx["launched"] + t1["launched"] + tc["launched"]
+
+
 def main():
     import numpy as np
     import torch
@@ -1904,8 +2338,11 @@ def main():
                 f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    srv = phase_serve("phi3-medium-14b", "flash_wgmma")  # frees its weights
-    print(serve_line(7, srv, t0), flush=True)
+    # phases 7, 9 and 12 run half their published depth, widths kept, to
+    # leave the time limit room for the training phases 20-22
+    srv = phase_serve("phi3-medium-14b", "flash_wgmma",  # frees its weights
+                      num_layers=20)
+    print(serve_line(7, srv, t0, cut=half_cut("phi3-medium-14b")), flush=True)
 
     # ---- phase 8: card vs CPU through the same entry point -----------------
     t0 = time.perf_counter()
@@ -1919,8 +2356,8 @@ def main():
 
     # ---- phase 9: gemma-7b at full width, the hd-256 wgmma variant's path ---
     t0 = time.perf_counter()
-    gem = phase_serve("gemma-7b", "flash_wgmma256")
-    print(serve_line(9, gem, t0), flush=True)
+    gem = phase_serve("gemma-7b", "flash_wgmma256", num_layers=14)
+    print(serve_line(9, gem, t0, cut=half_cut("gemma-7b")), flush=True)
 
     # ---- phase 10: the sharded, megabatched pool at full size --------------
     sh = phase_sharded(db, queries, stream, true_ids)
@@ -1994,10 +2431,11 @@ def main():
           f"{fx['wall_card']:.2f} s vs {fx['wall_cpu']:.2f} s | {smi} | "
           f"{cl['phase_s']:.1f} s", flush=True)
 
-    # ---- phase 12: deepseek-moe-16b at its published size (MoE) ----------
+    # ---- phase 12: deepseek-moe-16b at its widths, half its depth (MoE) -
     t0 = time.perf_counter()
-    dsm = phase_serve("deepseek-moe-16b", "flash_wgmma")
-    print(serve_line(12, dsm, t0), flush=True)
+    dsm = phase_serve("deepseek-moe-16b", "flash_wgmma", num_layers=14)
+    print(serve_line(12, dsm, t0, cut=half_cut("deepseek-moe-16b")),
+          flush=True)
 
     # ---- phase 13: deepseek-v3-671b at full width, depth 1 (MLA, MoE, MTP)
     t0 = time.perf_counter()
@@ -2075,6 +2513,9 @@ def main():
         f"{fcc['layers_err']:.3g} (1e-3) | {time.perf_counter() - t0:.1f} s",
         flush=True)
 
+    # ---- phases 20-22: training (no B1-B4 launch by design) ---------------
+    train_launches = training_phases(smi)
+
     # launches on each kernel's path: B1/B2 on the pool (phases 3, 4); B3's
     # total, its wgmma variant and B4 on phi3's serving path (phase 7); the
     # f32 variant on phase 8's float32 server; the hd-256 wgmma variant on
@@ -2127,7 +2568,9 @@ def main():
             else ares[name]["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r.get("library_ms")}
+            "library_ms": r.get("library_ms"),
+            # launches in the training phases 20-22: 0 by design
+            "train_launches": train_launches}
         if "warm_ms" in r:
             entry["warm_ms"] = r["warm_ms"]
         if name in DISTANCE:

@@ -15,6 +15,9 @@ found by path:
                               engine, the monolithic ``VectorPool``
   prng.py                   — bit-exact threefry2x32 entry-point PRNG
   convert.py                — index, engine state and checkpoints from numpy
+  training/, checkpoint/    — synthetic data, AdamW, the train step and
+                              ``Trainer``; atomic npz checkpoints
+  launch/, examples/        — the serving and training drivers
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``;
 the CPU is used only when the caller asks for it (``device="cpu"``), and a

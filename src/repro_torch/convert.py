@@ -89,7 +89,31 @@ def _leading(tree) -> int:
     return len(np.asarray(tree))
 
 
-def lm_params_from_numpy(cfg, params, device="cuda"):
+# bfloat16 in numpy: two raw bytes a value, the void dtype ``np.savez``
+# writes for an ``ml_dtypes.bfloat16`` array (and ``np.load`` reads back)
+BF16_VOID = np.dtype("V2")
+
+
+def tensor_from_numpy(a):
+    """A CPU tensor of ``a``'s dtype; a 2-byte void (bfloat16 as numpy
+    holds it without ``ml_dtypes``, or an ``ml_dtypes.bfloat16`` array)
+    becomes bfloat16, bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def tensor_to_numpy(t):
+    """The inverse of ``tensor_from_numpy``: bfloat16 as ``BF16_VOID``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_VOID)
+    return t.numpy()
+
+
+def lm_params_from_numpy(cfg, params, device="cuda", keep_dtype=False):
     """The port's parameters from a parameter tree in the JAX package's
     layout with numpy leaves (``jax.device_get`` of
     ``model_zoo.init_params``), on ``device``:
@@ -104,7 +128,10 @@ def lm_params_from_numpy(cfg, params, device="cuda"):
 
     Each leaf takes the dtype the port's init gives it: ``cfg.dtype``, but
     float32 for the MoE router and mamba's ``A_log`` and ``D``. Values are
-    carried bit for bit (bfloat16 leaves pass exactly through float32)."""
+    carried bit for bit (bfloat16 leaves pass exactly through float32).
+    With ``keep_dtype`` each leaf keeps its own dtype instead (a
+    checkpoint's leaves, the optimizer's float32 moments; see
+    ``tensor_from_numpy``)."""
     from repro_torch.models.mamba import F32_LEAVES
     from repro_torch.models.moe import ROUTER_DTYPE
     from repro_torch.models.transformer import (DTYPES, group_layer_kinds,
@@ -117,6 +144,8 @@ def lm_params_from_numpy(cfg, params, device="cuda"):
     def put(tree, name=""):
         if isinstance(tree, dict):
             return {k: put(v, k) for k, v in tree.items()}
+        if keep_dtype:
+            return tensor_from_numpy(tree).to(dev)
         return torch.tensor(np.asarray(tree, np.float32)).to(
             device=dev, dtype=f32.get(name, dtype))
 
@@ -141,15 +170,18 @@ def lm_params_from_numpy(cfg, params, device="cuda"):
     return out
 
 
-def lm_params_to_numpy(params):
+def lm_params_to_numpy(params, keep_dtype=False):
     """The inverse of ``lm_params_from_numpy``: the JAX package's layout
     (per-layer lists stacked into ``blocks["l0"]``, per-group lists into
     ``blocks["l{i}"]``, ``encoder``/``decoder`` onto their layer axes;
     ``mtp`` unstacked) with float32 numpy leaves, exact for float32 and
-    bfloat16 parameters."""
+    bfloat16 parameters; with ``keep_dtype`` each leaf in its own dtype
+    (``tensor_to_numpy``)."""
     def get(tree):
         if isinstance(tree, dict):
             return {k: get(v) for k, v in tree.items()}
+        if keep_dtype:
+            return tensor_to_numpy(tree)
         return tree.detach().float().cpu().numpy()
 
     out = {}

@@ -5,7 +5,10 @@ partial-top-k merges as torch ops on their tensors' device.
 
 CUDA tensors go to the Hopper kernels; CPU tensors go to the plain-PyTorch
 versions. There is no fallback: a CUDA tensor never reaches the plain
-version, and a kernel that fails to build or launch raises.
+version, and a kernel that fails to build or launch raises. The kernels are
+bound through ctypes and have no backward, so the four dispatchers refuse,
+on either device, an input that needs a gradient while autograd is on
+(training attends through ``models/attention.py::attend_blocked``).
 """
 from __future__ import annotations
 
@@ -77,6 +80,16 @@ def finalize_partial_topk(buf_ids, buf_dists, rows_f, *, k: int):
     return buf_ids, buf_dists, m_ids, m_d
 
 
+def _refuse_autograd(name: str, *tensors):
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"ops.{name}: an input requires grad, but the kernel is bound "
+            "through ctypes and has no backward (its gradient would be "
+            "silently lost); run under torch.no_grad(), or train through "
+            "attention_forward(..., blocked=True)")
+
+
 def _on_card(t) -> bool:
     if t.device.type == "cuda":
         return True
@@ -93,6 +106,7 @@ def distance_tasks(db, queries, task_ids, task_slot, metric: str = "l2",
     T % task_block == 0 (the engine pads with dummies). ``task_block`` is
     the TPU kernel's tile and is kept as the same contract; the CUDA
     kernels run one warp per task whatever its value."""
+    _refuse_autograd("distance_tasks", db, queries)
     T = task_ids.shape[0]
     if task_block <= 0 or T % task_block:
         raise ValueError(f"T={T} must be a multiple of task_block="
@@ -118,6 +132,7 @@ def distance_tasks_group(dbs, queries, task_ids, task_slot,
     arrays: the written-out counterpart of the ``jax.vmap`` over shard
     replicas in the JAX package's ``extend_multi_group``. CUDA tensors take
     one launch of the lane kernel; CPU tensors the batched plain version."""
+    _refuse_autograd("distance_tasks_group", dbs, queries)
     T = task_ids.shape[-1]
     if task_block <= 0 or T % task_block:
         raise ValueError(f"T={T} must be a multiple of task_block="
@@ -141,6 +156,7 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 256,
     """q (B,Sq,H,hd), k/v (B,Sk,Hkv,hd) -> (B,Sq,H,hd). ``block_q`` and
     ``block_k`` are the TPU kernel's tiles, accepted and ignored: the CUDA
     kernel picks its own tiles from hd and masks ragged ones."""
+    _refuse_autograd("flash_attention", q, k, v)
     if _on_card(q):
         return _fa.flash_attention(q, k, v, causal=causal)
     return _ref.mha_ref(q, k, v, causal=causal)
@@ -150,6 +166,7 @@ def decode_attention(q, k, v, cur_len: int, block_s: int = 512):
     """q (B,H,hd) over the cache k/v (B,S,Hkv,hd) at positions <= cur_len
     -> (B,H,hd). ``block_s`` is the TPU kernel's tile, accepted and
     ignored: the CUDA kernel splits the positions by the card's SM count."""
+    _refuse_autograd("decode_attention", q, k, v)
     if _on_card(q):
         return _dec.decode_attention(q, k, v, cur_len)
     return _ref.decode_attn_ref(q, k, v, cur_len)

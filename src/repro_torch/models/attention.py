@@ -5,7 +5,9 @@ and one-token decode over a KV cache through the decode-attention kernel
 that ``kernels/ops.py`` dispatches here). ``attend_blocked``, ``gqa_scores``
 and ``gqa_values`` are also here as torch ops: MLA attends through
 ``attend_blocked`` (its q/k head dim differs from its v head dim, which the
-flash kernel does not take).
+flash kernel does not take), and so does training (``attention_forward(...,
+blocked=True)``): the kernels are bound without a backward, and the
+reference trains through this XLA path under ``jax.value_and_grad``.
 
 Shapes:
   x:      (B, S, d_model)
@@ -17,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers
@@ -55,7 +58,9 @@ def _project_qkv(params, x, cfg):
 
 
 def _sqrt_hd(hd: int, dtype):
-    """``jnp.sqrt(hd).astype(dtype)``: the float32 square root, cast."""
+    """``jnp.sqrt(hd).astype(dtype)``: the float32 square root, cast. A 0-d
+    CPU tensor: a CUDA op takes it as a scalar, with no copy to the card
+    (a copy from pageable memory would wait for the stream)."""
     return torch.tensor(float(hd), dtype=torch.float32).sqrt().to(dtype)
 
 
@@ -65,7 +70,7 @@ def gqa_scores(q, k):
     Hkv = k.shape[2]
     qg = q.reshape(B, Sq, Hkv, H // Hkv, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k)
-    return scores / _sqrt_hd(hd, q.dtype).to(q.device)
+    return scores / _sqrt_hd(hd, q.dtype)
 
 
 def gqa_values(probs, v):
@@ -75,6 +80,15 @@ def gqa_values(probs, v):
     return out.reshape(B, Sq, Hkv * g, v.shape[-1])
 
 
+def _attend_block(q, k, v, q_positions, kv_positions, causal: bool):
+    scores = gqa_scores(q, k).float()
+    if causal:
+        mask = q_positions[:, None] >= kv_positions[None, :]
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return gqa_values(probs, v)
+
+
 def attend_blocked(q, k, v, q_positions, kv_positions, causal: bool,
                    block_q: int = 512):
     """Blocked attention over q blocks of at most ``block_q`` rows, so the
@@ -82,6 +96,10 @@ def attend_blocked(q, k, v, q_positions, kv_positions, causal: bool,
     sqrt(hd) cast to it, softmax in float32, probabilities in v's dtype (the
     reference's casts); v has a head dim of its own. On one card the
     reference's sequence-parallel split (``seq_parallel``) is always 1.
+    Under autograd, when there are several blocks, each is recomputed in
+    backward, as the reference's ``jax.checkpoint`` of its scan body does,
+    so no block's probabilities wait for the backward (one block's are
+    held for its own backward either way).
 
     q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v);
     positions 1-D. Returns (B, Sq, H, hd_v) in v's dtype."""
@@ -89,19 +107,19 @@ def attend_blocked(q, k, v, q_positions, kv_positions, causal: bool,
     qb = min(block_q, Sq)
     while Sq % qb:
         qb //= 2
+    remat = Sq > qb and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     outs = []
     for s0 in range(0, Sq, qb):
-        scores = gqa_scores(q[:, s0:s0 + qb], k).float()
-        if causal:
-            mask = q_positions[s0:s0 + qb, None] >= kv_positions[None, :]
-            scores = torch.where(mask, scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        outs.append(gqa_values(probs, v))
+        args = (q[:, s0:s0 + qb], k, v, q_positions[s0:s0 + qb],
+                kv_positions, causal)
+        outs.append(checkpoint(_attend_block, *args, use_reentrant=False)
+                    if remat else _attend_block(*args))
     return torch.cat(outs, dim=1)
 
 
 def attention_forward(params, x, cfg, positions=None, causal: bool = True,
-                      kv_override=None):
+                      kv_override=None, blocked: bool = False):
     """Full-sequence attention (prefill, the encoder, cross-attention).
     Returns (out (B,S,d), (k, v)) with k after rotary embedding, as the
     cache stores it.
@@ -110,23 +128,31 @@ def attention_forward(params, x, cfg, positions=None, causal: bool = True,
     values are the override's (B, Sk, Hkv, hd), and neither q nor k gets
     rotary embedding. The kernel's causal mask is by index, the
     reference's by position: the same wherever both are aranges (every
-    caller's)."""
+    caller's).
+
+    blocked: the training arm. q/k/v go through ``attend_blocked`` (torch
+    ops under autograd, masked by position) instead of the flash kernel,
+    which has no backward."""
     B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
     if kv_override is None:
         q, k, v = _project_qkv(params, x, cfg)
-        if positions is None:
-            positions = torch.arange(S, dtype=torch.int32, device=x.device)
         cos, sin = layers.rope_angles(positions, cfg.resolved_head_dim,
                                       cfg.rope_theta)
         q = layers.apply_rope(q, cos, sin)
         k = layers.apply_rope(k, cos, sin)
+        kv_positions = positions
     else:
         q = x @ params["wq"]
         if cfg.qkv_bias:
             q = q + params["bq"]
         q = q.reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
-        k, v, _ = kv_override
-    out = ops.flash_attention(q, k, v, causal=causal)
+        k, v, kv_positions = kv_override
+    if blocked:
+        out = attend_blocked(q, k, v, positions, kv_positions, causal)
+    else:
+        out = ops.flash_attention(q, k, v, causal=causal)
     return out.reshape(B, S, -1) @ params["wo"], (k, v)
 
 

@@ -15,11 +15,14 @@ flash-attention kernel, and the decode step's self-attention the
 decode-attention kernel. The decode step's cross-attention over the
 static encoder keys is the reference's XLA ``gqa_scores`` → float32
 softmax → ``gqa_values``, unmasked; no TPU kernel stands behind it, so it
-is torch ops here.
+is torch ops here. Training (``encdec_loss``) runs all three attentions
+through ``attend_blocked`` under autograd, each layer recomputed in
+backward (the reference's ``jax.checkpoint`` of its scan bodies).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers
@@ -59,19 +62,36 @@ def init_encdec_params(cfg, seed: int = 0, device="cuda"):
     return params
 
 
-def encode(params, cfg, frames):
-    """frames: (B, S_enc, d) stub frontend embeddings -> encoder output."""
+def _run_layers(layer, params_list, x, train: bool, *args):
+    """``layer(p, x, *args) -> (x, out)`` over the stack. Returns (x, the
+    outs). Training recomputes each layer in backward and keeps no outs."""
+    outs = []
+    for p in params_list:
+        if train and torch.is_grad_enabled():
+            x = checkpoint(lambda p_, x_: layer(p_, x_, *args)[0], p, x,
+                           use_reentrant=False)
+        else:
+            x, out = layer(p, x, *args)
+            outs.append(out)
+    return x, outs
+
+
+def _encoder_layer(p, x, cfg, positions, train: bool):
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    a, _ = attention.attention_forward(p["attn"], h, cfg, positions,
+                                       causal=False, blocked=train)
+    x = x + a
+    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + layers.gated_mlp(p["mlp"], h, cfg.mlp_kind), None
+
+
+def encode(params, cfg, frames, train: bool = False):
+    """frames: (B, S_enc, d) stub frontend embeddings -> encoder output.
+    ``train``: the training arm (blocked attention, layers recomputed)."""
     S = frames.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=frames.device)
-    x = frames
-    for p in params["encoder"]:
-        h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-        a, _ = attention.attention_forward(p["attn"], h, cfg, positions,
-                                           causal=False)
-        x = x + a
-        h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + layers.gated_mlp(p["mlp"], h, cfg.mlp_kind)
-    return x
+    return _run_layers(_encoder_layer, params["encoder"], frames, train, cfg,
+                       positions, train)[0]
 
 
 def _cross_kv(p, enc_out, cfg):
@@ -82,30 +102,56 @@ def _cross_kv(p, enc_out, cfg):
     return k, v
 
 
-def _decoder_stack(params, cfg, tokens, enc_out):
+def _decoder_layer(p, x, cfg, positions, enc_out, enc_pos, train: bool):
+    """One decoder layer. Returns (x, its cache {"k", "v", "ck", "cv"})."""
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    a, (k, v) = attention.attention_forward(p["self_attn"], h, cfg,
+                                            positions, blocked=train)
+    x = x + a
+    h = layers.rms_norm(x, p["lnx"], cfg.norm_eps)
+    ck, cv = _cross_kv(p, enc_out, cfg)
+    a, _ = attention.attention_forward(
+        p["cross_attn"], h, cfg, positions, causal=False,
+        kv_override=(ck, cv, enc_pos), blocked=train)
+    x = x + a
+    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + layers.gated_mlp(p["mlp"], h, cfg.mlp_kind)
+    return x, {"k": k, "v": v, "ck": ck, "cv": cv}
+
+
+def _decoder_stack(params, cfg, tokens, enc_out, train: bool = False):
     """Teacher-forced decoder pass. Returns (pre-norm hidden (B,S,d), the
-    per-layer caches {"k", "v", "ck", "cv"})."""
+    per-layer caches {"k", "v", "ck", "cv"}; none when training)."""
     S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     enc_pos = torch.arange(enc_out.shape[1], dtype=torch.int32,
                            device=enc_out.device)
     x = params["embed"][tokens.long()]
-    caches = []
-    for p in params["decoder"]:
-        h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-        a, (k, v) = attention.attention_forward(p["self_attn"], h, cfg,
-                                                positions)
-        x = x + a
-        h = layers.rms_norm(x, p["lnx"], cfg.norm_eps)
-        ck, cv = _cross_kv(p, enc_out, cfg)
-        a, _ = attention.attention_forward(
-            p["cross_attn"], h, cfg, positions, causal=False,
-            kv_override=(ck, cv, enc_pos))
-        x = x + a
-        h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + layers.gated_mlp(p["mlp"], h, cfg.mlp_kind)
-        caches.append({"k": k, "v": v, "ck": ck, "cv": cv})
-    return x, caches
+    return _run_layers(_decoder_layer, params["decoder"], x, train, cfg,
+                       positions, enc_out, enc_pos, train)
+
+
+def decoder_hidden(params, cfg, tokens, enc_out):
+    """Teacher-forced decoder pass (the training arm) returning pre-norm
+    hidden states."""
+    return _decoder_stack(params, cfg, tokens, enc_out, train=True)[0]
+
+
+def encdec_loss(params, cfg, batch):
+    """batch: {"frames": (B,S,d), "tokens": (B,S), "labels": (B,S)}.
+    Returns (loss, {"loss", "xent", "aux"}). The frames are cast to the
+    model's dtype, as the port's server makes them (ROADMAP C6)."""
+    from repro_torch.models.transformer import chunked_xent
+
+    frames = batch["frames"].to(params["embed"].dtype)
+    enc_out = encode(params, cfg, frames, train=True)
+    hidden = decoder_hidden(params, cfg, batch["tokens"], enc_out)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    s_nll, s_m = chunked_xent(params, cfg, hidden, labels.clamp(min=0), mask)
+    loss = s_nll / torch.clamp(s_m, min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, {"loss": loss, "xent": loss, "aux": aux}
 
 
 def _logits(params, cfg, x):

@@ -1,12 +1,11 @@
-"""Architecture dispatch: init / prefill / decode per family, analytic
-parameter counts and MODEL_FLOPS (the JAX package's
+"""Architecture dispatch: init / loss / prefill / decode per family,
+analytic parameter counts and MODEL_FLOPS (the JAX package's
 ``models/model_zoo.py``).
 
-Every family of the JAX package is served: decoder-only stacks
+Every family of the JAX package is served and trained: decoder-only stacks
 (``transformer``: attention blocks, the mamba/attention hybrid, xLSTM) and
-the encoder-decoder (``encdec``). The training entry (``loss_fn``) waits
-for ROADMAP Queue A item 13. ``input_specs`` and ``param_specs`` build
-``jax.ShapeDtypeStruct`` stand-ins for the TPU dry run and have no
+the encoder-decoder (``encdec``). ``input_specs`` and ``param_specs``
+build ``jax.ShapeDtypeStruct`` stand-ins for the TPU dry run and have no
 counterpart here (item 14).
 """
 from __future__ import annotations
@@ -23,6 +22,15 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     if is_encdec(cfg):
         return encdec.init_encdec_params(cfg, seed, device)
     return transformer.init_lm_params(cfg, seed, device)
+
+
+def loss_fn(cfg, params, batch):
+    """(loss, metrics) under autograd. batch: {"tokens", "labels"} (B,S)
+    int, ["frontend"] (B,F,d); under encdec {"frames" (B,S,d), "tokens",
+    "labels"}."""
+    if is_encdec(cfg):
+        return encdec.encdec_loss(params, cfg, batch)
+    return transformer.lm_loss(params, cfg, batch)
 
 
 def prefill_fn(cfg, params, batch):

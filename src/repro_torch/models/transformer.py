@@ -20,24 +20,34 @@ never reads it (it trains with the MTP loss).
 
 API:
   init_lm_params(cfg, seed, device)                -> params
+  forward_train(params, cfg, tokens, frontend=None)-> (logits, aux_loss, hidden)
+  lm_loss(params, cfg, batch)                      -> (loss, metrics)
   prefill(params, cfg, tokens, frontend=None)      -> (logits_last, caches)
   init_decode_caches(cfg, batch, max_len, dtype, device) -> caches
   decode_step(params, cfg, token, caches, cur_len) -> (logits, caches)
 
-The training functions (``forward_train``, ``lm_loss``, ``chunked_xent``)
-come with the training slice (ROADMAP Queue A item 13).
+Training runs under autograd over the same parameter tree: attention
+through ``attend_blocked`` (``attention_forward(..., blocked=True)``; the
+kernels have no backward), each layer (attention blocks) or group (hybrid,
+xLSTM) recomputed in backward by ``torch.utils.checkpoint`` where the
+reference's ``jax.checkpoint`` of its scan body recomputes it, and the vocab
+head in sequence chunks (``chunked_xent``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, mamba, mla, moe, xlstm
 
 # the parameter types the attention kernels take
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+AUX_WEIGHT = 0.01  # the MoE load-balancing loss's weight in lm_loss
+MTP_WEIGHT = 0.3  # the multi-token-prediction loss's weight
+XENT_CHUNK = 512  # chunked_xent's sequence chunk, halved until it divides S
 
 
 def _uses_moe(cfg, layer_idx_in_group: int) -> bool:
@@ -148,7 +158,7 @@ def embed_tokens(params, cfg, tokens, frontend: Optional[torch.Tensor] = None):
     x = params["embed"][tokens.long()]  # (B,S,d)
     if cfg.name.startswith("gemma"):
         scale = torch.tensor(float(cfg.d_model), dtype=torch.float32).sqrt()
-        x = x * scale.to(x.dtype).to(x.device)
+        x = x * scale.to(x.dtype)  # a 0-d CPU tensor: a scalar to CUDA ops
     if frontend is not None and cfg.frontend_tokens > 0:
         F_ = frontend.shape[1]
         spliced = x.clone()
@@ -166,24 +176,182 @@ def lm_logits(params, cfg, x):
     return layers.mask_padded_logits(logits.float(), cfg.vocab_size)
 
 
+def _zero(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def _mlp_apply(p, x, cfg, use_moe: bool):
-    """x: (B, S, d) -> out. (The MoE's aux loss is for training, item 13.)"""
+    """x: (B, S, d) -> (out, aux): the MoE's load-balancing loss (a float32
+    0-d tensor), 0.0 for a dense MLP. Serving drops it."""
     if cfg.mlp_kind == "none":
-        return torch.zeros_like(x)
+        return torch.zeros_like(x), 0.0
     if use_moe:
         B, S, d = x.shape
-        return moe.moe_forward(p["mlp"], x.reshape(B * S, d), cfg)[0].reshape(
-            B, S, d)
+        y, aux = moe.moe_forward(p["mlp"], x.reshape(B * S, d), cfg)
+        return y.reshape(B, S, d), aux
     # non-MoE layers of a moe_every>1 arch use a dense swiglu
     kind = cfg.mlp_kind if cfg.mlp_kind != "moe" else "swiglu"
-    return layers.gated_mlp(p["mlp"], x, kind)
+    return layers.gated_mlp(p["mlp"], x, kind), 0.0
 
 
 def _with_mlp(p, x, a, cfg, use_moe: bool):
-    """x + a, then the layer's MLP (or MoE) on its ln2 norm, added."""
+    """x + a, then the layer's MLP (or MoE) on its ln2 norm, added.
+    Returns (x, aux)."""
     x = x + a
-    return x + _mlp_apply(p, layers.rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
-                          use_moe)
+    y, aux = _mlp_apply(p, layers.rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
+                        use_moe)
+    return x + y, aux
+
+
+# ---------------------------------------------------------------------------
+# train forward / loss
+# ---------------------------------------------------------------------------
+
+
+def _attn_layer_train(p, x, cfg, positions, use_moe: bool):
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.attn_kind == "mla":
+        a, _ = mla.mla_forward(p["attn"], h, cfg, positions)
+    else:
+        a, _ = attention.attention_forward(p["attn"], h, cfg, positions,
+                                           blocked=True)
+    return _with_mlp(p, x, a, cfg, use_moe)
+
+
+def _mamba_layer_train(p, x, cfg, use_moe: bool):
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    return _with_mlp(p, x, mamba.mamba_forward(p["mamba"], h, cfg), cfg,
+                     use_moe)
+
+
+_XLSTM_TRAIN = {"mlstm": xlstm.mlstm_forward, "slstm": xlstm.slstm_forward}
+
+
+def group_train(p_group, x, cfg, positions):
+    """One layer (``block_kind="attn"``: ``p_group`` is the layer's dict) or
+    one group of layers. Returns (x, aux_loss)."""
+    if cfg.block_kind == "attn":
+        return _attn_layer_train(p_group, x, cfg, positions,
+                                 _uses_moe(cfg, 0))
+    aux = _zero(x)
+    for i, kind in enumerate(group_layer_kinds(cfg)):
+        p = p_group[f"l{i}"]
+        if kind == "attn":
+            x, a = _attn_layer_train(p, x, cfg, positions, _uses_moe(cfg, i))
+        elif kind == "mamba":
+            x, a = _mamba_layer_train(p, x, cfg, _uses_moe(cfg, i))
+        else:
+            x, a = _XLSTM_TRAIN[kind](p, x, cfg), 0.0
+        aux = aux + a
+    return x, aux
+
+
+def backbone(params, cfg, x, positions):
+    """The stack of layers or groups. x: (B,S,d) -> (x, aux_loss). Under
+    autograd each layer or group keeps only its input and is recomputed in
+    backward."""
+    remat = torch.is_grad_enabled()
+    aux = _zero(x)
+    for p in params["blocks"]:
+        if remat:
+            x, a = checkpoint(group_train, p, x, cfg, positions,
+                              use_reentrant=False)
+        else:
+            x, a = group_train(p, x, cfg, positions)
+        aux = aux + a
+    return x, aux
+
+
+def forward_train(params, cfg, tokens, frontend=None):
+    """Returns (logits (B,S,V) float32, aux_loss, the pre-norm hidden
+    state for MTP)."""
+    S = tokens.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    x = embed_tokens(params, cfg, tokens, frontend)
+    x, aux = backbone(params, cfg, x, positions)
+    return lm_logits(params, cfg, x), aux, x
+
+
+def _xent(logits, labels, mask):
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, labels.long()[..., None])[..., 0]
+    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def head_weight(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _xent_chunk(xc, W, lc, mc, vocab_size: int):
+    """One sequence chunk's (Σ nll, Σ mask): (B,c,d) hidden, (B,c) labels
+    and mask."""
+    # padded-vocab ids never win: masked to finfo.min
+    logits = layers.mask_padded_logits((xc @ W).float(), vocab_size)
+    lse = torch.logsumexp(logits, dim=-1)  # (B,c)
+    # the reference's one-hot einsum: every other term is 0 · finite
+    lab = logits.gather(-1, lc[..., None])[..., 0]
+    return torch.sum((lse - lab) * mc), torch.sum(mc)
+
+
+def chunked_xent(params, cfg, hidden, labels, mask):
+    """Cross-entropy over the vocab head without the full (B, S, V) float32
+    logits: the sequence in chunks of ``XENT_CHUNK`` (halved until it
+    divides S, the reference's rule), each chunk's logits recomputed in
+    backward. Returns (sum_nll, sum_mask)."""
+    x = layers.rms_norm(hidden, params["final_norm"], cfg.norm_eps)
+    W = head_weight(params, cfg)
+    S = x.shape[1]
+    c = min(XENT_CHUNK, S)
+    while S % c:
+        c //= 2
+    remat = torch.is_grad_enabled()
+    labels = labels.long()
+    s_nll, s_m = _zero(x), _zero(x)
+    for s0 in range(0, S, c):
+        args = (x[:, s0:s0 + c], W, labels[:, s0:s0 + c],
+                mask[:, s0:s0 + c], cfg.vocab_size)
+        nll, m = (checkpoint(_xent_chunk, *args, use_reentrant=False)
+                  if remat else _xent_chunk(*args))
+        s_nll, s_m = s_nll + nll, s_m + m
+    return s_nll, s_m
+
+
+def _shift(t):
+    """t[:, 1:] with a zero column appended (the MTP's labels, t + 2)."""
+    return torch.cat([t[:, 1:], torch.zeros_like(t[:, :1])], dim=1)
+
+
+def lm_loss(params, cfg, batch):
+    """batch: {"tokens": (B,S), "labels": (B,S), ["frontend"]: (B,F,d)};
+    labels < 0 are masked out. Returns (loss, metrics {"xent", "aux",
+    ["mtp"], "loss"}), each a float32 0-d tensor."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    mask = (labels >= 0).float()
+    labels = labels.clamp(min=0)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    x = embed_tokens(params, cfg, tokens, batch.get("frontend"))
+    hidden, aux = backbone(params, cfg, x, positions)
+    s_nll, s_m = chunked_xent(params, cfg, hidden, labels, mask)
+    loss = s_nll / torch.clamp(s_m, min=1.0)
+    metrics = {"xent": loss, "aux": aux}
+    if cfg.mtp_depth > 0 and "mtp" in params:
+        # MTP depth 1: predict t+2 from (hidden_t, embed(label_t))
+        emb = params["embed"]
+        emb_next = emb[labels.clamp(max=emb.shape[0] - 1).long()]
+        h = torch.cat([hidden.to(emb_next.dtype), emb_next], dim=-1)
+        h = h @ params["mtp"]["proj"]
+        h, _ = _attn_layer_train(params["mtp"]["block"], h, cfg, positions,
+                                 _uses_moe(cfg, 0))
+        h = layers.rms_norm(h, params["mtp"]["norm"], cfg.norm_eps)
+        m_nll, m_m = chunked_xent(params, cfg, h, _shift(labels),
+                                  _shift(mask))
+        mtp_loss = m_nll / torch.clamp(m_m, min=1.0)
+        metrics["mtp"] = mtp_loss
+        loss = loss + MTP_WEIGHT * mtp_loss
+    loss = loss + AUX_WEIGHT * aux
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +398,7 @@ def _attn_layer_decode(p, x, cache, cur_len: int, cfg, use_moe: bool,
     else:
         a, cache = attention.decode_step_attention(p["attn"], h, cache,
                                                    cur_len, cfg, seq_axis)
-    return _with_mlp(p, x, a, cfg, use_moe), cache
+    return _with_mlp(p, x, a, cfg, use_moe)[0], cache
 
 
 def _layer_decode(p, x, cache, cur_len: int, cfg, kind: str, i: int,
@@ -242,7 +410,7 @@ def _layer_decode(p, x, cache, cur_len: int, cfg, kind: str, i: int,
     if kind == "mamba":
         h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
         a, cache = mamba.mamba_decode_step(p["mamba"], h, cache, cfg)
-        return _with_mlp(p, x, a, cfg, _uses_moe(cfg, i)), cache
+        return _with_mlp(p, x, a, cfg, _uses_moe(cfg, i))[0], cache
     if kind == "mlstm":
         return xlstm.mlstm_decode_step(p, x, cache, cfg)
     return xlstm.slstm_decode_step(p, x, cache, cfg)
@@ -286,7 +454,7 @@ def _attn_layer_prefill(p, x, cfg, positions, use_moe: bool):
     else:
         a, (k, v) = attention.attention_forward(p["attn"], h, cfg, positions)
         kv = {"k": k, "v": v}
-    return _with_mlp(p, x, a, cfg, use_moe), kv
+    return _with_mlp(p, x, a, cfg, use_moe)[0], kv
 
 
 def _layer_prefill(p, x, cfg, positions, kind: str, i: int):
@@ -297,7 +465,7 @@ def _layer_prefill(p, x, cfg, positions, kind: str, i: int):
     if kind == "mamba":
         h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
         a, cache = mamba.mamba_block(p["mamba"], h, cfg)
-        return _with_mlp(p, x, a, cfg, _uses_moe(cfg, i)), cache
+        return _with_mlp(p, x, a, cfg, _uses_moe(cfg, i))[0], cache
     if kind == "mlstm":
         return xlstm.mlstm_block(p, x, cfg)
     return xlstm.slstm_block(p, x, cfg)

@@ -36,6 +36,13 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+def _max1(x):
+    """``jnp.maximum(x, 1.0)`` with its gradient: half to each side of a
+    tie. ``clamp`` would pass all of it, and ties are the rule here: the
+    sLSTM's first step has n = 1 exactly."""
+    return torch.maximum(x, x.new_ones(()))
+
+
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
@@ -99,7 +106,11 @@ def _mlstm_chunk(q, k, v, i_g, f_g, state):
             - m_t[:, :, None])  # (B,Lc_t,Lc_s,H)
     Lc = q.shape[1]
     causal = torch.ones((Lc, Lc), dtype=torch.bool, device=q.device).tril()
-    w = torch.where(causal[None, :, :, None], torch.exp(expo), 0.0)
+    # the exponent is masked before exp: the reference exps the whole
+    # square and masks after, the same forward values, but above the
+    # diagonal expo passes 88 once the gates spread within a chunk, and the
+    # masked inf then turns every gradient NaN (ROADMAP C9)
+    w = torch.exp(torch.where(causal[None, :, :, None], expo, -math.inf))
 
     scores = torch.einsum("bthd,bshd->btsh", qf, kf) * w  # (B,Lc,Lc,H)
     num_intra = torch.einsum("btsh,bshd->bthd", scores, vf)
@@ -113,7 +124,7 @@ def _mlstm_chunk(q, k, v, i_g, f_g, state):
 
     num = num_intra + num_inter
     den = den_intra + den_inter
-    h = num / torch.clamp(den.abs(), min=1.0)[..., None]  # (B,Lc,H,dh)
+    h = num / _max1(den.abs())[..., None]  # (B,Lc,H,dh)
 
     # chunk-end state (t = Lc-1)
     mL = m_t[:, -1]  # (B,H)
@@ -244,7 +255,7 @@ def _slstm_cell(params, xg, state, H, dh):
     f_t = torch.exp(log_f + m_prev - m_new)
     c_new = f_t * c_prev + i_t * z_t
     n_new = f_t * n_prev + i_t
-    h_new = o_t * c_new / torch.clamp(n_new, min=1.0)
+    h_new = o_t * c_new / _max1(n_new)
     return h_new, c_new, n_new, m_new
 
 

@@ -1238,3 +1238,47 @@ def test_fixture_cluster_on_card_matches_cpu(cuda):
                       for r in sim.vector_pool.metrics.completed])
     assert runs["cuda"] == runs["cpu"]
     assert runs["cpu"][2]  # the controller acted
+
+
+def _needs_grad_inputs(dev):
+    """One call of each kernel dispatcher, its first input made to require
+    grad when asked."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, grad=False):
+        return torch.randn(shape, generator=g, device=dev).requires_grad_(grad)
+
+    def ids(hi):
+        return torch.randint(0, hi, (256,), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    return {
+        "flash_attention": lambda grad: ops.flash_attention(
+            randn(1, 64, 4, 64, grad=grad), randn(1, 64, 2, 64),
+            randn(1, 64, 2, 64)),
+        "decode_attention": lambda grad: ops.decode_attention(
+            randn(1, 4, 64, grad=grad), randn(1, 64, 2, 64),
+            randn(1, 64, 2, 64), 5),
+        "distance_tasks": lambda grad: ops.distance_tasks(
+            randn(512, 64, grad=grad), randn(16, 64), ids(512), ids(16)),
+        "distance_tasks_group": lambda grad: ops.distance_tasks_group(
+            randn(2, 512, 64, grad=grad), randn(2, 16, 64),
+            ids(512).reshape(1, -1).repeat(2, 1),
+            ids(16).reshape(1, -1).repeat(2, 1)),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "distance_tasks", "distance_tasks_group"])
+def test_ops_refuse_inputs_that_need_a_gradient_on_card(cuda, name):
+    """A CUDA input that requires grad never reaches the ctypes-bound
+    kernel (it has no backward) while autograd is on; under no_grad the
+    kernel launches."""
+    call = _needs_grad_inputs(cuda)[name]
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(True)
+    with torch.no_grad():
+        assert torch.isfinite(call(True)).all()
+
