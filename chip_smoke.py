@@ -26,8 +26,9 @@ line is printed only when every phase passed):
     G=1 launch on lane g; and the launch floor, a one-element add timed
     both ways
   3 the pool at full size: the quickstart's stream over 1024 queries,
-    drained; recall@10 against exact kNN on the card; the same stream
-    through the port on the CPU over the same index for comparison
+    drained; recall@10 against exact kNN on the card; the stream's first
+    512 requests through the port on the CPU over the same index for
+    comparison
   4 the same pool with distance_mode="matmul_onehot" on the first 256
     queries; recall within 0.01 of phase 3's on the same queries
   5 launch counts: each kernel launched on its path (counts set to 0
@@ -70,14 +71,15 @@ line is printed only when every phase passed):
  10 the sharded, megabatched pool at full size (sharded-sift1m-shape): the
     same corpus in 4 balanced-k-means shards (exact graphs built on the
     card) x 2 replicas = 8 lanes of one GroupEngine, the answer cache on;
-    the quickstart stream with 256 inserts of fresh vectors interleaved,
-    then 256 cache lookups (half repeat an insert); every request completed
+    the quickstart stream's first 512 requests with 128 inserts of fresh
+    vectors interleaved, then 128 cache lookups (half repeat an insert);
+    every request completed
     once, recall@10 >= 0.3, inserts broadcast to their owning shard's two
     replicas only, at least half the repeats hit, every grouped extend's
     distance stage one 8-lane launch of B1; the first 128 probes, 32
     inserts and 32 repeat lookups again on the card and on the CPU over
     clones of the shards (>= 99% equal lists, recall within 0.005, equal
-    hits); the first 128 probes with matmul_onehot (B2's lane form, recall
+    hits); the first 64 probes with matmul_onehot (B2's lane form, recall
     within 0.01)
  11 the Trinity cluster (rag-cluster-sift1m-shape): ClusterSim with
     phi3-medium-14b at its published widths priced on V5E, disaggregated,
@@ -155,6 +157,22 @@ line is printed only when every phase passed):
     No kernel of B1-B4 launches in phases 20-22, by design: training
     attends through attend_blocked (torch ops under autograd), the kernels
     having no backward.
+ 23 the mesh code: make_host_mesh's (1, 1) NCCL mesh over a one-rank
+    in-memory group; phi3-medium-14b at full width (d_model 5120, 40/10
+    heads at hd 128, bf16) cut to 2 of 40 layers prefills 4 x 512 tokens,
+    then decodes 32 tokens twice, with seq_axis="model" inside
+    activation_sharding(mesh) and without: equal tokens, logits within
+    1e-3, every sharded decode attention a B4 launch with its log-sum-exp
+    (counted); B4's lse against its plain version at phi3's, gemma-7b's
+    (hd 256) and jamba's (g 8) decode shapes, and over 2, 4 and 8 slices of
+    phi3's cache (boundaries inside a tile, slices wholly past cur_len
+    launching nothing) combined by the sharded decode's own arithmetic
+    (sharding.merge_stacked), equal to one launch over the whole within
+    1e-3, and timed beside one ATen call that also returns the
+    log-sum-exp (FlashAttention-2's forward; a yardstick); one dry-run cell
+    (phi3-medium-14b x decode_32k on the 16 x 16 production mesh, meta
+    tensors over the fake backend) through the dry run's CLI, its counts
+    printed
 
 The pool's and the cluster's clocks are simulated and priced by the JAX
 package's V5E model; phase 11 prints its simulated TTFT and TPOT labelled
@@ -166,6 +184,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -176,6 +195,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 N, D_IM, NUM_QUERIES = 1_000_000, 128, 1024
+N_CPU = 512  # phase 3's requests run again on the CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
@@ -983,7 +1003,8 @@ def phase_serve(arch, variant, **cut):
 
 SHARDED = dict(num_shards=SHARDS, replicas_per_shard=2,
                semantic_cache_enabled=True)  # phase 10's pool
-N_INSERT, N_LOOKUP = 256, 256  # phase 10's inserts and cache lookups
+P10_PROBES = 512  # phase 10's probes: the quickstart stream's first 512
+N_INSERT, N_LOOKUP = 128, 128  # phase 10's inserts and cache lookups
 
 
 def sharded_stream(stream, queries, inserts, fresh, n_insert, n_lookup):
@@ -1090,11 +1111,12 @@ def phase_sharded(db, queries, stream, true_ids):
     """Phase 10: the sharded, megabatched pool at full size
     (sharded-sift1m-shape): the 10^6 x 128 corpus in 4 shards x 2 replicas
     (8 lanes of one GroupEngine), the answer cache on, exact shard graphs
-    built on the card; the quickstart stream with 256 inserts, then 256
-    cache lookups; every grouped chunk's distance stage one lane launch.
+    built on the card; the stream it is given (the quickstart stream's
+    first 512 requests) with 128 inserts, then 128 cache lookups; every
+    grouped chunk's distance stage one lane launch.
     The first 128 probes with the first 32 inserts and their 32 repeat
     lookups run again on the card and on the CPU over clones of the same
-    shards (equal lists and hits), and the first 128 probes with their 32
+    shards (equal lists and hits), and the first 64 probes with their 16
     inserts on the card with distance_mode="matmul_onehot" (B2's lane
     form; recall within 0.01 of the slot-gather run's)."""
     import numpy as np
@@ -1194,8 +1216,8 @@ def phase_sharded(db, queries, stream, true_ids):
                red_vs_full=float((runs["cuda"]["ids"] == ids[:n_red])
                                  .all(1).mean()))
 
-    # B2's lane form on the same path: the first 128 probes + 32 inserts
-    n_oh = 128
+    # B2's lane form on the same path: the first 64 probes + 16 inserts
+    n_oh = 64
     cfg_oh = dataclasses.replace(cfg, distance_mode="matmul_onehot")
     oh_events = [e for e in red_events
                  if (e[1] == "probe" and e[2][0] < n_oh)
@@ -2087,6 +2109,245 @@ def phase_train_card_vs_cpu():
     return out
 
 
+MESH_NEW = 32  # phase 23's decoded tokens
+# phase 23's B4 lse shapes: phi3's, gemma-7b's (hd 256) and jamba's (g 8)
+LSE_CASES = ((4, 544, 40, 10, 128), (4, 544, 16, 16, 256),
+             (4, 544, 64, 8, 128))
+LSE_SLICES = (2, 4, 8)  # M of the sliced combine
+LSE_CUR = 300  # its cur_len: slices past it hold no valid position
+
+
+def combine_slices(parts):
+    """The seqshard core's combine (``sharding.merge_partials``, which
+    ``combine_partials`` runs between its all_reduces), over a list instead
+    of ranks: [(out (B, H, hd), lse (B, H))] of the slices that hold a
+    valid position -> out in float32."""
+    import torch
+
+    from repro_torch.distributed import sharding
+
+    lse = torch.stack([p[1] for p in parts])
+    o = torch.stack([p[0].float() for p in parts])
+    return sharding.merge_stacked(lse, torch.ones_like(lse), o)
+
+
+def lse_library(q, k, v):
+    """One PyTorch call that returns decode attention's output and its
+    log-sum-exp over every position (B4 with lse at cur_len = S - 1; a
+    yardstick, never called by the port): FlashAttention-2's forward as
+    ATen binds it (``_scaled_dot_product_flash_attention``: GQA in the
+    kernel, the lse in natural log, float32). q (B, H, hd); k, v (B, S,
+    Hkv, hd) -> (out (B, H, hd), lse (B, H))."""
+    import torch
+
+    res = torch.ops.aten._scaled_dot_product_flash_attention(
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), 0.0, False,
+        False)
+    return res[0][:, :, 0], res[1][:, :, 0]
+
+
+def phase_lse():
+    """B4 with its log-sum-exp against the plain version at phi3's,
+    gemma-7b's and jamba's decode shapes (bf16, cur_len 543; out, float32
+    in this mode, within 2e-2 as phase 6, lse within 1e-3), out rounded to
+    bf16 equal to the launch without lse bit for bit; then M in {2, 4, 8}
+    slices of phi3's cache (boundaries at multiples of 544 / M, inside a
+    32-position tile; cur_len 300, so the last slices hold nothing and
+    launch nothing), combined by ``sharding.merge_stacked`` (the seqshard
+    core's arithmetic), against one launch with lse over the whole
+    (float32, 1e-3); times of the lse launch beside the launch without
+    lse, the plain version and ``lse_library`` (cold L2, CUDA-graph
+    replay)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention, ref
+
+    dev = torch.device("cuda")
+    res = {"cases": [], "max_abs_err": 0.0, "lse_err": 0.0, "slices": []}
+
+    def randn(shape, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+    for j, (B, S, H, Hkv, hd) in enumerate(LSE_CASES):
+        sets = [(randn((B, H, hd), 300 + 3 * c + 10 * j),
+                 randn((B, S, Hkv, hd), 301 + 3 * c + 10 * j),
+                 randn((B, S, Hkv, hd), 302 + 3 * c + 10 * j))
+                for c in range(10)]
+        q, k, v = sets[0]
+        cur = S - 1
+        out, lse = decode_attention.decode_attention(q, k, v, cur,
+                                                     return_lse=True)
+        plain = decode_attention.decode_attention(q, k, v, cur)
+        want, want_lse = ref.decode_attn_ref(q, k, v, cur, return_lse=True)
+        torch.cuda.synchronize()
+        err, ok = close(out, want, 2e-2)
+        lerr, lok = close(lse, want_lse, 1e-3)
+        check(ok and lok, f"B4 with lse {(B, S, H, Hkv, hd)}: out err {err}, "
+              f"lse err {lerr}")
+        check(torch.equal(out.bfloat16(), plain), "B4: out with lse (f32) "
+              "rounded to bf16 differs from out without")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["lse_err"] = max(res["lse_err"], lerr)
+        lib = lse_library(q, k, v)
+        torch.cuda.synchronize()
+        lib_err = max(close(lib[0], want, 2e-2)[0],
+                      close(lib[1], want_lse, 1e-3)[0])
+        hold = 1_000_000_000
+        times = {
+            "ms": graph_ms(lambda q, k, v: decode_attention.decode_attention(
+                q, k, v, cur, return_lse=True), sets, 200, hold)[0],
+            "no_lse_ms": graph_ms(lambda q, k, v: decode_attention
+                                  .decode_attention(q, k, v, cur), sets, 200,
+                                  hold)[0],
+            "plain_ms": graph_ms(lambda q, k, v: ref.decode_attn_ref(
+                q, k, v, cur, return_lse=True), sets, 200, hold)[0],
+            "library_ms": graph_ms(lse_library, sets, 200, hold)[0]}
+        nbytes = ((2 * q.numel() + 2 * B * S * Hkv * hd) * 2 + B * H * 4)
+        bound, by = attention_bound(nbytes, 4 * B * H * hd * S, 0, 1.0,
+                                    torch.bfloat16)
+        res["cases"].append(dict(shape=(B, S, H, Hkv, hd), cur_len=cur,
+                                 max_abs_err=err, lse_err=lerr, bound_ms=bound,
+                                 bound_by=by, library_err=lib_err, **times))
+        if j == 0:  # the sliced combine on phi3's cache
+            whole = decode_attention.decode_attention(
+                q, k, v, LSE_CUR, return_lse=True)[0]
+            pw = ref.decode_attn_ref(q, k, v, LSE_CUR, True)[0]
+            for M in LSE_SLICES:
+                S_loc = S // M
+                parts, plain_parts = [], []
+                for i in range(M):
+                    local = LSE_CUR - i * S_loc
+                    if local < 0:
+                        continue  # past cur_len: nothing launched
+                    ks, vs = (t[:, i * S_loc:(i + 1) * S_loc] for t in (k, v))
+                    parts.append(decode_attention.decode_attention(
+                        q, ks, vs, local, return_lse=True))
+                    plain_parts.append(ref.decode_attn_ref(q, ks, vs, local,
+                                                           True))
+                got = combine_slices(parts)
+                got_plain = combine_slices(plain_parts)
+                torch.cuda.synchronize()
+                serr, sok = close(got, whole, 1e-3)
+                perr, _ = close(got_plain, pw, 1e-3)
+                check(sok, f"B4 over {M} slices combined vs one launch with "
+                      f"lse: max err {serr} above 1e-3")
+                res["slices"].append(dict(M=M, launched=len(parts),
+                                          max_abs_err=serr, plain_err=perr))
+        del sets, q, k, v
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_mesh():
+    """Phase 23: the mesh code on the card. ``make_host_mesh`` makes a
+    (1, 1) NCCL mesh over a one-rank in-memory group; phi3-medium-14b at
+    full width (d_model 5120, 40/10 heads at hd 128, bf16, random weights
+    from seed 0) cut to 2 of its 40 layers prefills 4 x 512 tokens, the
+    caches are padded to 544 (the handoff), and 32 tokens are decoded
+    greedily twice from copies of them: with seq_axis="model" inside
+    activation_sharding(mesh) and without. Tokens equal, logits within
+    1e-3; every decode attention of the first a B4 launch with lse, none of
+    the second. Then B4's lse (``phase_lse``), and one dry-run cell of a
+    published config on the production mesh through the dry run's CLI in a
+    process of its own (meta tensors over the fake backend: the planning
+    path imports and runs on this torch build)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import decode_attention
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.serving.kv_cache import pad_prefill_caches
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(device="cuda")
+    check(dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1),
+          f"host mesh {mesh} on {dist.get_backend()}")
+    try:
+        cfg = dataclasses.replace(get_config("phi3-medium-14b"), num_layers=2)
+        params = model_zoo.init_params(cfg, seed=0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(23)
+        toks = torch.randint(0, cfg.vocab_size, (4, 512), generator=g,
+                             device="cuda", dtype=torch.int32)
+        with torch.no_grad():
+            logits0, caches = model_zoo.prefill_fn(cfg, params,
+                                                   {"tokens": toks})
+        caches = pad_prefill_caches(caches, 512 + MESH_NEW)
+        runs = {}
+        with torch.no_grad(), sharding.activation_sharding(mesh):
+            # warm-up: the first sharded step imports the DTensor module
+            model_zoo.decode_fn(cfg, params, toks[:, :1],
+                                [{k: t.clone() for k, t in layer.items()}
+                                 for layer in caches], 512, seq_axis="model")
+        for name, ctx, seq_axis in (
+                ("seqshard", sharding.activation_sharding(mesh), "model"),
+                ("plain", contextlib.nullcontext(), None)):
+            c = [{k: t.clone() for k, t in layer.items()} for layer in caches]
+            tok = logits0[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            out_toks, out_logits = [], []
+            decode_attention.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad(), ctx:
+                for i in range(MESH_NEW):
+                    lg, c = model_zoo.decode_fn(cfg, params, tok, c, 512 + i,
+                                                seq_axis=seq_axis)
+                    tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                    out_toks.append(tok)
+                    out_logits.append(lg)
+            torch.cuda.synchronize()
+            runs[name] = dict(toks=torch.cat(out_toks, 1).cpu(),
+                              logits=torch.cat(out_logits, 1),
+                              wall_s=time.perf_counter() - t0,
+                              launches=dict(decode_attention.launches))
+        n_b4 = cfg.num_layers * MESH_NEW
+        ss, pl = runs["seqshard"], runs["plain"]
+        check(ss["launches"] == {"decode_attention": n_b4,
+                                 "decode_attention_lse": n_b4},
+              f"seqshard decode launched {ss['launches']}, want {n_b4} B4 "
+              "launches, each with lse")
+        check(pl["launches"] == {"decode_attention": n_b4,
+                                 "decode_attention_lse": 0},
+              f"plain decode launched {pl['launches']}")
+        check(torch.equal(ss["toks"], pl["toks"]),
+              "seqshard tokens differ from the plain decode's")
+        err, ok = close(ss["logits"], pl["logits"], 1e-3)
+        check(ok, f"seqshard logits vs plain: max err {err} above 1e-3")
+        check(bool(torch.isfinite(ss["logits"]).all()), "non-finite logits")
+        out = dict(toks=ss["toks"][0].tolist(), logit_err=err,
+                   launches=ss["launches"], wall_seq=ss["wall_s"],
+                   wall_plain=pl["wall_s"])
+        del params, caches, runs, ss, pl, logits0
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out["lse"] = phase_lse()
+
+    # one cell of the dry run on the production mesh, the CLI in a process
+    # of its own (the fake backend becomes its default group)
+    rdir = ROOT / "build" / "chip_smoke_dryrun"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "phi3-medium-14b", "--shape", "decode_32k", "--force",
+         "--results-dir", str(rdir)], capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    check(proc.returncode == 0, f"dry run failed: {proc.stderr[-2000:]}")
+    rec = json.loads((rdir / "phi3-medium-14b__decode_32k__pod_16x16.json")
+                     .read_text())
+    check(rec["status"] == "ok", f"dry-run cell: {rec.get('error')}")
+    check(rec["per_device"]["flops"] > 0
+          and rec["memory_analysis"]["argument_size"] > 0,
+          f"dry-run cell counted nothing: {rec['per_device']}")
+    out.update(dryrun=rec, dryrun_s=time.perf_counter() - t0,
+               phase_s=time.perf_counter() - t_phase)
+    return out
+
+
 def training_phases(smi):
     """Phases 20-22, each printed on a line of its own. Returns the
     kernels' launches over the three (0: checked in each phase)."""
@@ -2241,13 +2502,18 @@ def main():
     m = pool.metrics
     check(recall >= 0.3, f"recall@10 {recall:.4f} under the 0.3 floor")
 
-    pool_cpu, wall_cpu, _ = drive_pool(cfg, db, graph, queries, stream, "cpu")
-    ids_cpu, ext_cpu = results_of(pool_cpu, NUM_QUERIES)
-    recall_cpu = recall_at_k(ids_cpu, true_ids)
-    same = float((ids_gpu == ids_cpu).all(axis=1).mean())
+    # the CPU run: the stream's first N_CPU requests (to leave the time
+    # limit room for phase 23), held to the card's same requests
+    pool_cpu, wall_cpu, _ = drive_pool(cfg, db, graph, queries,
+                                       stream[:N_CPU], "cpu")
+    ids_cpu, ext_cpu = results_of(pool_cpu, N_CPU)
+    recall_cpu = recall_at_k(ids_cpu, true_ids[:N_CPU])
+    recall_card = recall_at_k(ids_gpu[:N_CPU], true_ids[:N_CPU])
+    same = float((ids_gpu[:N_CPU] == ids_cpu).all(axis=1).mean())
     check(same >= 0.99, f"only {same:.4f} of top-10 lists equal the CPU run")
-    check(abs(recall - recall_cpu) <= 0.005,
-          f"recall@10 {recall:.4f} (card) vs {recall_cpu:.4f} (CPU)")
+    check(abs(recall_card - recall_cpu) <= 0.005,
+          f"recall@10 {recall_card:.4f} (card) vs {recall_cpu:.4f} (CPU) on "
+          f"the first {N_CPU}")
     p50, p95 = np.percentile(np.asarray(chunk_s) * 1e3, [50, 95])
     print(f"phase 3 pool: N={N} d={D_IM} dataset {data_s:.1f} s, graph "
           f"(exact kNN on the card) {graph_s:.1f} s, ground truth {gt_s:.2f} s"
@@ -2258,9 +2524,10 @@ def main():
           f"({wall_s:.2f} s), peak allocated {peak_mb:.0f} MiB, occupancy "
           f"{m.occupancy:.4f}, preemptions {m.preemptions}, launches "
           f"{main_launches} | CPU run: "
-          f"recall@10={recall_cpu:.4f}, "
+          f"first {N_CPU} requests, recall@10={recall_cpu:.4f} (card "
+          f"{recall_card:.4f}), "
           f"top-10 lists equal {same:.4f}, extends equal "
-          f"{float((ext_gpu == ext_cpu).mean()):.4f}, {wall_cpu:.1f} s",
+          f"{float((ext_gpu[:N_CPU] == ext_cpu).mean()):.4f}, {wall_cpu:.1f} s",
           flush=True)
 
     # ---- phase 4: the one-hot form on the first 256 queries ---------------
@@ -2360,12 +2627,14 @@ def main():
     print(serve_line(9, gem, t0, cut=half_cut("gemma-7b")), flush=True)
 
     # ---- phase 10: the sharded, megabatched pool at full size --------------
-    sh = phase_sharded(db, queries, stream, true_ids)
+    # its first P10_PROBES requests (to leave room for phase 23)
+    sh = phase_sharded(db, queries, stream[:P10_PROBES],
+                       true_ids[:P10_PROBES])
     red = sh["red"]
     print(f"phase 10 sharded pool: {N} x {D_IM} in {SHARDS} shards "
           f"{sh['sizes']} x 2 replicas = {sh['G']} lanes (stacked rows "
           f"{sh['n_max']}), shards and exact graphs built on the card in "
-          f"{sh['build_s']:.1f} s | {NUM_QUERIES} probes + {N_INSERT} inserts "
+          f"{sh['build_s']:.1f} s | {P10_PROBES} probes + {N_INSERT} inserts "
           f"+ {N_LOOKUP} lookups: {sh['completed']} completions each once, "
           f"recall@10={sh['recall']:.4f}, repeated lookups hit "
           f"{sh['hit_rep']}/{N_INSERT // 2}, fresh lookups hit "
@@ -2379,7 +2648,7 @@ def main():
           f"{sh['chunks']} grouped chunks of {sh['extends']} extends, "
           f"distance launches {sh['launches']} by G {sh['lanes']}: one "
           f"{sh['G']}-lane launch a grouped extend, none single-lane | "
-          f"{sh['wall_s']:.2f} s ({NUM_QUERIES / sh['wall_s']:.1f} probes per "
+          f"{sh['wall_s']:.2f} s ({P10_PROBES / sh['wall_s']:.1f} probes per "
           f"wall-second), peak allocated {sh['peak_gib']:.2f} GiB | first "
           f"{sh['n_red']} probes + {sh['n_red'] // 4} inserts + "
           f"{sh['n_red'] // 4} repeat lookups, card vs CPU: top-10 "
@@ -2388,7 +2657,7 @@ def main():
           f"{red['cuda']['hits']} vs {red['cpu']['hits']}, "
           f"{red['cuda']['wall']:.1f} s vs {red['cpu']['wall']:.1f} s (lists"
           f" equal to the full run's {sh['red_vs_full']:.4f}) | "
-          f"matmul_onehot on the first 128: recall@10={sh['oh_recall']:.4f} "
+          f"matmul_onehot on the first 64: recall@10={sh['oh_recall']:.4f} "
           f"(slot_gather {sh['sg_recall']:.4f}), lists equal "
           f"{sh['oh_same']:.4f}, launches {sh['oh_launches']} by G "
           f"{sh['oh_lanes']}, {sh['oh_wall']:.1f} s | {smi} | "
@@ -2516,6 +2785,36 @@ def main():
     # ---- phases 20-22: training (no B1-B4 launch by design) ---------------
     train_launches = training_phases(smi)
 
+    # ---- phase 23: the mesh code (seqshard decode, B4's lse, the dry run) --
+    msh = phase_mesh()
+    lse, dry = msh["lse"], msh["dryrun"]
+    pd_, ma = dry["per_device"], dry["memory_analysis"]
+    print(f"phase 23 mesh: make_host_mesh (1, 1) NCCL over a one-rank group | "
+          f"phi3-medium-14b at full width, 2 of 40 layers, 4 x 512 prompt "
+          f"tokens, {MESH_NEW} decoded twice: seq_axis='model' in "
+          f"activation_sharding(mesh) vs plain, tokens equal {msh['toks']}, "
+          f"logits within {msh['logit_err']:.3g} (1e-3), launches "
+          f"{msh['launches']} (every decode attention B4 with lse), "
+          f"{msh['wall_seq']:.2f} s vs {msh['wall_plain']:.2f} s | B4 lse vs "
+          f"plain: " + "; ".join(
+              f"{c['shape']} out err {c['max_abs_err']:.3g} lse err "
+              f"{c['lse_err']:.3g} ms={c['ms']:.5f} (without lse "
+              f"{c['no_lse_ms']:.5f}) plain_ms={c['plain_ms']:.5f} "
+              f"library_ms(flash)={c['library_ms']:.5f} (vs plain "
+              f"{c['library_err']:.3g}) bound_ms={c['bound_ms']:.6f} "
+              f"({c['bound_by']})" for c in lse["cases"])
+          + " | slices of phi3's cache combined vs one launch (cur_len "
+          f"{LSE_CUR}): " + ", ".join(
+              f"M={c['M']} ({c['launched']} launched) err "
+              f"{c['max_abs_err']:.3g} (plain {c['plain_err']:.3g})"
+              for c in lse["slices"])
+          + f" | dry run phi3-medium-14b x decode_32k x 16x16 (meta, fake "
+          f"backend, {msh['dryrun_s']:.1f} s): per device flops "
+          f"{pd_['flops']:.6g}, bytes {pd_['bytes_accessed']:.6g}, "
+          f"collective {pd_['collective_bytes']}, argument "
+          f"{ma['argument_size']} B, output {ma['output_size']} B, temp "
+          f"{ma['temp_size']} B | {smi} | {msh['phase_s']:.1f} s", flush=True)
+
     # launches on each kernel's path: B1/B2 on the pool (phases 3, 4); B3's
     # total, its wgmma variant and B4 on phi3's serving path (phase 7); the
     # f32 variant on phase 8's float32 server; the hd-256 wgmma variant on
@@ -2538,6 +2837,8 @@ def main():
             launches[n] += srv_["launches"][n]
     for srv_ in (dsm, dsv, xls, sml, jam):
         launches["distance_slot_gather"] += srv_["launches"]["distance_slot_gather"]
+    # phase 23's seqshard decode: B4 with lse, every decode attention
+    launches["decode_attention"] += msh["launches"]["decode_attention"]
     launches.update(flash_fp32=cmp_["launches"]["flash_fp32"],
                     flash_wgmma256=gem["launches"]["flash_wgmma256"],
                     flash_mma=ares["launches"]["flash_mma"])
@@ -2591,6 +2892,17 @@ def main():
                                          "bound_by", "bound_fp32_cores_ms")
                  if key in c} for c in cases if c["variant"] == name]
         if name == "decode_attention":
+            # phase 23: B4 with its lse, on the seqshard decode's path
+            lc = lse["cases"][0]
+            entry["lse"] = {
+                "launches": msh["launches"]["decode_attention_lse"],
+                "shape": lc["shape"], "max_abs_err": lc["max_abs_err"],
+                "lse_err": lc["lse_err"], "ms": lc["ms"],
+                "no_lse_ms": lc["no_lse_ms"], "plain_ms": lc["plain_ms"],
+                "bound_ms": lc["bound_ms"], "bound_by": lc["bound_by"],
+                # one ATen call that returns (out, lse): lse_library
+                "library_ms": lc["library_ms"],
+                "cases": lse["cases"], "slices": lse["slices"]}
             for key, shape, srv_ in (("gemma_7b", (16, 16, 256), gem),
                                      ("deepseek_moe_16b", (16, 16, 128), dsm),
                                      ("seamless_m4t_large_v2", (16, 16, 64),

@@ -12,10 +12,20 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401  (re-exported)
+    DECODE_32K,
+    LONG_500K,
+    MULTI_POD,
+    PREFILL_32K,
+    SHAPES,
+    SINGLE_POD,
+    TRAIN_4K,
+    MeshConfig,
     MLAConfig,
     ModelConfig,
     MoEConfig,
+    ShapeConfig,
     VectorPoolConfig,
+    shapes_for,
 )
 
 # arch-id -> module name
@@ -51,3 +61,7 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke_config(arch: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests."""
     return _module(arch).SMOKE_CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]

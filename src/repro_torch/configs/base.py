@@ -2,8 +2,9 @@
 
 Copies of ``MoEConfig``, ``MLAConfig``, ``ModelConfig``, ``ShapeConfig``,
 ``VectorPoolConfig`` and ``AutoscalerConfig``: the same fields with the
-same defaults, so one config drives both packages (``MeshConfig`` waits
-for ROADMAP item A14). ``tests/test_torch_isolation.py`` holds them equal.
+same defaults, so one config drives both packages, and ``MeshConfig``
+with the production meshes ``SINGLE_POD`` and ``MULTI_POD``.
+``tests/test_torch_isolation.py`` holds them equal.
 ``ModelConfig.param_count`` counts through the port's own
 ``models/model_zoo.py::analytic_param_count``.
 """
@@ -375,3 +376,20 @@ class AutoscalerConfig:
     # decode unit while the windowed ITL p95 is within this factor of
     # tpot_slo_s — a starved vector pool cannot push decode out of SLO
     itl_protect_factor: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))

@@ -21,7 +21,10 @@
 //     (decode_attention). One new token per sequence: q (B, H, hd) attends
 //     over the cache k/v (B, S, Hkv, hd) at positions <= cur_len (one
 //     scalar for the whole batch, passed by value from the host). Output
-//     (B, H, hd) in q's type. One launch: decode_split_kernel.
+//     (B, H, hd) in q's type or, when the log-sum-exp is asked for, a
+//     partial for the sequence-sharded decode's combine: the output in f32
+//     (not rounded to q's type) and each head's log-sum-exp of its scaled
+//     scores as f32 (B, H). One launch: decode_split_kernel.
 //
 // Bound on this card, and what the design does about it.
 //
@@ -1679,8 +1682,8 @@ __device__ __forceinline__ void dec_issue(unsigned char* stage, uint64_t* bar,
 template <typename T, int HD, int GMAX>
 __global__ void __launch_bounds__(DecTile<T, HD, GMAX>::THREADS) decode_split_kernel(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-    const T* __restrict__ q, T* __restrict__ out, int H, int g, int n_valid, int chunk,
-    int64_t sqb, int64_t sqh, float scale_log2) {
+    const T* __restrict__ q, void* __restrict__ out, float* __restrict__ lse, int H, int g,
+    int n_valid, int chunk, int64_t sqb, int64_t sqh, float scale_log2) {
   using F = DecTile<T, HD, GMAX>;
   extern __shared__ __align__(1024) unsigned char smem_dec[];
   unsigned char* base = align1024(smem_dec);
@@ -1854,14 +1857,22 @@ __global__ void __launch_bounds__(DecTile<T, HD, GMAX>::THREADS) decode_split_ke
         mx = m_new;
       }
     }
-    out[bh0 * HD + i] = from_f<T>(num / fmaxf(den, 1e-30f));
+    const float val = num / fmaxf(den, 1e-30f);
+    if (lse == nullptr) {
+      static_cast<T*>(out)[bh0 * HD + i] = from_f<T>(val);
+    } else {  // a partial for the seqshard combine: f32, and the head's
+      // log-sum-exp of its scaled scores in natural log (mx and den are
+      // in base 2: the scores carry scale * log2(e))
+      static_cast<float*>(out)[bh0 * HD + i] = val;
+      if (i % HD == 0) lse[bh0 + gi] = (mx + log2f(den)) * 0.6931471805599453f;
+    }
   }
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 template <typename T, int HD, int GMAX>
-int launch_decode(const void* q, const void* k, const void* v, void* o, int B, int H,
-                  int Hkv, int n_valid, int n_split, int chunk, int64_t sqb, int64_t sqh,
+int launch_decode(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                  int H, int Hkv, int n_valid, int n_split, int chunk, int64_t sqb, int64_t sqh,
                   int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs,
                   int64_t svh, cudaStream_t stream) {
   using F = DecTile<T, HD, GMAX>;
@@ -1898,7 +1909,7 @@ int launch_decode(const void* q, const void* k, const void* v, void* o, int B, i
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, decode_split_kernel<T, HD, GMAX>, km, vm, static_cast<const T*>(q),
-      static_cast<T*>(o), H, H / Hkv, n_valid, chunk, sqb, sqh,
+      o, lse, H, H / Hkv, n_valid, chunk, sqb, sqh,
       1.4426950408889634f / sqrtf(static_cast<float>(HD)));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
@@ -1906,13 +1917,13 @@ int launch_decode(const void* q, const void* k, const void* v, void* o, int B, i
 
 template <typename T, int HD>
 int dispatch_decode_g(int g, const void* q, const void* k, const void* v, void* o,
-                      int B, int H, int Hkv, int n_valid,
+                      float* lse, int B, int H, int Hkv, int n_valid,
                       int n_split, int chunk, int64_t sqb, int64_t sqh, int64_t skb,
                       int64_t sks, int64_t skh, int64_t svb, int64_t svs, int64_t svh,
                       cudaStream_t stream) {
 #define REPRO_DECODE(G_)                                                                 \
   if (g <= G_)                                                                           \
-    return launch_decode<T, HD, G_>(q, k, v, o, B, H, Hkv, n_valid, n_split, \
+    return launch_decode<T, HD, G_>(q, k, v, o, lse, B, H, Hkv, n_valid, n_split, \
                                     chunk, sqb, sqh, skb, sks, skh, svb, svs, svh, stream);
   REPRO_DECODE(1)
   REPRO_DECODE(2)
@@ -1924,7 +1935,7 @@ int dispatch_decode_g(int g, const void* q, const void* k, const void* v, void* 
 }
 
 template <typename T>
-int dispatch_decode(const void* q, const void* k, const void* v, void* o, int B,
+int dispatch_decode(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                     int H, int Hkv, int hd, int n_valid,
                     int n_split, int chunk, int64_t sqb, int64_t sqh, int64_t skb,
                     int64_t sks, int64_t skh, int64_t svb, int64_t svs, int64_t svh,
@@ -1932,7 +1943,7 @@ int dispatch_decode(const void* q, const void* k, const void* v, void* o, int B,
   const int g = H / Hkv;
 #define REPRO_DECODE_HD(HD_)                                                            \
   case HD_:                                                                             \
-    return dispatch_decode_g<T, HD_>(g, q, k, v, o, B, H, Hkv, n_valid,                \
+    return dispatch_decode_g<T, HD_>(g, q, k, v, o, lse, B, H, Hkv, n_valid,           \
                                      n_split, chunk, sqb, sqh, skb, sks, skh, svb, svs, \
                                      svh, stream);
   switch (hd) {
@@ -1976,9 +1987,12 @@ extern "C" int repro_flash_attention(
 // `chunk` positions (n_split * chunk >= n_valid > (n_split - 1) * chunk,
 // n_split at most 8: the chunks of one (b, kv head) are one cluster);
 // nothing at or past n_valid is read. k and v need 16-byte aligned bases
-// and strides (TMA). o is a contiguous (B, H, hd) tensor. One launch.
+// and strides (TMA). o is a contiguous (B, H, hd) tensor of q's type;
+// when lse is not null, o is float32 and lse a contiguous float32 (B, H)
+// tensor that receives each head's log-sum-exp of its scaled scores
+// (natural log). One launch.
 extern "C" int repro_decode_attention(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B, int H,
+    const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B, int H,
     int Hkv, int hd, int n_valid, int n_split, int chunk, int64_t sqb, int64_t sqh,
     int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs, int64_t svh,
     cudaStream_t stream) {
@@ -1988,8 +2002,8 @@ extern "C" int repro_decode_attention(
       static_cast<int64_t>(n_split - 1) * chunk >= n_valid || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch_decode<float>(q, k, v, o, B, H, Hkv, hd, n_valid, n_split, chunk, sqb,
+    return dispatch_decode<float>(q, k, v, o, lse, B, H, Hkv, hd, n_valid, n_split, chunk, sqb,
                                   sqh, skb, sks, skh, svb, svs, svh, stream);
-  return dispatch_decode<__nv_bfloat16>(q, k, v, o, B, H, Hkv, hd, n_valid, n_split, chunk,
+  return dispatch_decode<__nv_bfloat16>(q, k, v, o, lse, B, H, Hkv, hd, n_valid, n_split, chunk,
                                         sqb, sqh, skb, sks, skh, svb, svs, svh, stream);
 }

@@ -14,7 +14,11 @@ shared memory. Its plain-PyTorch version is
 The wrapper takes CUDA tensors only: it checks every input, allocates the
 output with ``torch.empty``, launches on the current stream without
 synchronising (``cur_len`` never comes from the device), raises on a
-launch error, and counts its calls in ``launches``.
+launch error, and counts its calls in ``launches``. With ``return_lse`` the
+same launch gives a partial for the sequence-sharded decode's combine: the
+output in float32, not rounded to q's dtype, and each head's log-sum-exp
+of its scaled scores; those launches are counted again under
+``decode_attention_lse``.
 """
 from __future__ import annotations
 
@@ -26,13 +30,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
 
-launches = {"decode_attention": 0}
+launches = {"decode_attention": 0, "decode_attention_lse": 0}
 
 MAX_GROUP = 16  # query heads per kv head the kernel holds in registers
 TILE = 32  # cache positions a tile, one a lane (csrc kDecTile)
 BLOCK_TILES = 4  # tiles a block takes at once: one a warp
 MAX_SPLIT = 8  # chunks of one (b, kv head): one portable cluster (csrc kDecMaxSplit)
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_int64] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_int64] * 8
              + [ctypes.c_void_p])
 _bound = {}  # entry name -> its ctypes function, typed once
 _sms = {}  # device index -> multiprocessor count
@@ -107,8 +111,11 @@ def split_plan(n_blocks_bh: int, n_valid: int, sms: int):
     return -(-n_valid // chunk), chunk
 
 
-def decode_attention(q, k, v, cur_len: int):
-    """(B, H, hd) attention of the new token in ``q.dtype``."""
+def decode_attention(q, k, v, cur_len: int, return_lse: bool = False):
+    """(B, H, hd) attention of the new token in ``q.dtype``; with
+    ``return_lse`` (out (B, H, hd) float32, lse (B, H) float32): the output
+    unrounded and each head's natural-log log-sum-exp of its scores over
+    positions <= cur_len (scaled by 1/sqrt(hd))."""
     check_inputs(q, k, v, cur_len)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention takes CUDA tensors, got {q.device}")
@@ -120,15 +127,22 @@ def decode_attention(q, k, v, cur_len: int):
     if idx not in _sms:
         _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     n_split, chunk = split_plan(B * Hkv, n_valid, _sms[idx])
-    out = torch.empty((B, H, hd), dtype=q.dtype, device=dev)
+    out = torch.empty((B, H, hd), device=dev,
+                      dtype=torch.float32 if return_lse else q.dtype)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=dev)
+           if return_lse else None)
     with torch.cuda.device(dev):
         err = _entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], B, H, Hkv, hd, n_valid, n_split, chunk,
+            None if lse is None else lse.data_ptr(), DTYPES[q.dtype], B, H,
+            Hkv, hd, n_valid, n_split, chunk,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {err}")
     launches["decode_attention"] += 1
-    return out
+    if lse is None:
+        return out
+    launches["decode_attention_lse"] += 1
+    return out, lse

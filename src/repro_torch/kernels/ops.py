@@ -91,9 +91,12 @@ def _refuse_autograd(name: str, *tensors):
 
 
 def _on_card(t) -> bool:
+    """True for a CUDA tensor. CPU tensors take the plain version, and so
+    do meta tensors, the dry run's stand-ins (``launch/dryrun.py``), which
+    hold no data: on them the plain version only traces shapes."""
     if t.device.type == "cuda":
         return True
-    if t.device.type != "cpu":
+    if t.device.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {t.device}")
     return False
 
@@ -162,11 +165,15 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 256,
     return _ref.mha_ref(q, k, v, causal=causal)
 
 
-def decode_attention(q, k, v, cur_len: int, block_s: int = 512):
+def decode_attention(q, k, v, cur_len: int, block_s: int = 512,
+                     return_lse: bool = False):
     """q (B,H,hd) over the cache k/v (B,S,Hkv,hd) at positions <= cur_len
-    -> (B,H,hd). ``block_s`` is the TPU kernel's tile, accepted and
-    ignored: the CUDA kernel splits the positions by the card's SM count."""
+    -> (B,H,hd); with ``return_lse`` -> (out in float32, lse (B,H)
+    float32), the partial the sequence-sharded decode combines: the output
+    unrounded and each head's log-sum-exp of its scaled scores.
+    ``block_s`` is the TPU kernel's tile, accepted and ignored: the CUDA
+    kernel splits the positions by the card's SM count."""
     _refuse_autograd("decode_attention", q, k, v)
     if _on_card(q):
-        return _dec.decode_attention(q, k, v, cur_len)
-    return _ref.decode_attn_ref(q, k, v, cur_len)
+        return _dec.decode_attention(q, k, v, cur_len, return_lse=return_lse)
+    return _ref.decode_attn_ref(q, k, v, cur_len, return_lse=return_lse)

@@ -138,9 +138,12 @@ def mha_ref(q, k, v, causal: bool = True):
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def decode_attn_ref(q, k, v, cur_len: int):
+def decode_attn_ref(q, k, v, cur_len: int, return_lse: bool = False):
     """q: (B,H,hd) single step; k/v: (B,S,Hkv,hd); positions <= cur_len
-    attend. Returns (B,H,hd)."""
+    attend. Returns (B,H,hd) in q's dtype; with ``return_lse`` (out in
+    float32, unrounded, and each head's (B,H) float32 log-sum-exp of its
+    scaled scores over those positions): the kernel's partial for the
+    sequence-sharded decode."""
     B, H, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -150,4 +153,7 @@ def decode_attn_ref(q, k, v, cur_len: int):
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", probs, v.float())
-    return out.reshape(B, H, hd).to(q.dtype)
+    out = out.reshape(B, H, hd)
+    if not return_lse:
+        return out.to(q.dtype)
+    return out, torch.logsumexp(scores, dim=-1).reshape(B, H)

@@ -3,9 +3,10 @@
 same flags and defaults).
 
 ``--smoke`` trains the reduced same-family config (CPU-runnable); without
-it the published config trains on one card. There is no device mesh
-(ROADMAP item A14). The driver is checkpointed and resumable: kill it
-mid-run and rerun the same command to continue from the last checkpoint.
+it the published config trains on one card (the production meshes are
+planned, not run: ``launch/dryrun.py``). Training is checkpointed and
+resumable: kill it mid-run and rerun the same command to continue from
+the last checkpoint.
 """
 from __future__ import annotations
 

@@ -21,6 +21,8 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -52,9 +54,12 @@ def _project_qkv(params, x, cfg):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    return (q.reshape(B, S, cfg.num_heads, hd),
-            k.reshape(B, S, cfg.num_kv_heads, hd),
-            v.reshape(B, S, cfg.num_kv_heads, hd))
+    return (constrain(q.reshape(B, S, cfg.num_heads, hd),
+                      "batch", None, "model", None),
+            constrain(k.reshape(B, S, cfg.num_kv_heads, hd),
+                      "batch", None, "model", None),
+            constrain(v.reshape(B, S, cfg.num_kv_heads, hd),
+                      "batch", None, "model", None))
 
 
 def _sqrt_hd(hd: int, dtype):
@@ -81,21 +86,36 @@ def gqa_values(probs, v):
 
 
 def _attend_block(q, k, v, q_positions, kv_positions, causal: bool):
-    scores = gqa_scores(q, k).float()
+    """One q block of every row shard: q (B, M, qb, H, hd), q_positions
+    (M, qb) -> (B, M, qb, H, hd_v)."""
+    B, M, qb, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, M, qb, Hkv, H // Hkv, hd)
+    scores = torch.einsum("bmqkgh,bskh->bmkgqs", qg, k)
+    scores = (scores / _sqrt_hd(hd, q.dtype)).float()
     if causal:
-        mask = q_positions[:, None] >= kv_positions[None, :]
+        mask = (q_positions[None, :, None, None, :, None]
+                >= kv_positions[None, None, None, None, None, :])
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return gqa_values(probs, v)
+    out = torch.einsum("bmkgqs,bskh->bmqkgh", probs, v)
+    return out.reshape(B, M, qb, H, v.shape[-1])
 
 
 def attend_blocked(q, k, v, q_positions, kv_positions, causal: bool,
-                   block_q: int = 512):
+                   block_q: int = 512, seq_parallel: int = -1):
     """Blocked attention over q blocks of at most ``block_q`` rows, so the
     (Sq, Sk) scores are never held at once. Scores in q's dtype divided by
     sqrt(hd) cast to it, softmax in float32, probabilities in v's dtype (the
-    reference's casts); v has a head dim of its own. On one card the
-    reference's sequence-parallel split (``seq_parallel``) is always 1.
+    reference's casts); v has a head dim of its own.
+
+    seq_parallel=M > 0: the query rows are also split M ways on a leading
+    dim pinned to the "model" mesh axis (sequence-parallel attention for
+    head counts that do not divide the tensor-parallel degree; the dry
+    run's ``seqpar`` variant). The default, -1, takes M from the
+    ``activation_sharding`` context: 0 outside one. M = 1 unless M divides
+    Sq; ragged (2-D) positions keep M = 1. One body for every M, as the
+    reference's: (B, M, Sq / M, H, hd), a loop over its blocks of qb rows.
     Under autograd, when there are several blocks, each is recomputed in
     backward, as the reference's ``jax.checkpoint`` of its scan body does,
     so no block's probabilities wait for the backward (one block's are
@@ -104,18 +124,29 @@ def attend_blocked(q, k, v, q_positions, kv_positions, causal: bool,
     q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v);
     positions 1-D. Returns (B, Sq, H, hd_v) in v's dtype."""
     B, Sq, H, hd = q.shape
-    qb = min(block_q, Sq)
-    while Sq % qb:
+    if seq_parallel < 0:
+        seq_parallel = sharding.ctx_seq_parallel()
+    if q_positions.ndim != 1:
+        seq_parallel = 0
+    M = seq_parallel if (seq_parallel and Sq % seq_parallel == 0) else 1
+    Sl = Sq // M
+    qb = min(block_q, Sl)
+    while Sl % qb:
         qb //= 2
-    remat = Sq > qb and torch.is_grad_enabled() and any(
+    qr = q.reshape(B, M, Sl, H, hd)
+    if M > 1:
+        qr = constrain(qr, "batch", "model", None, None, None)
+    qpos = q_positions.reshape(M, Sl)
+    remat = Sl > qb and torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     outs = []
-    for s0 in range(0, Sq, qb):
-        args = (q[:, s0:s0 + qb], k, v, q_positions[s0:s0 + qb],
+    for s0 in range(0, Sl, qb):
+        args = (qr[:, :, s0:s0 + qb], k, v, qpos[:, s0:s0 + qb],
                 kv_positions, causal)
         outs.append(checkpoint(_attend_block, *args, use_reentrant=False)
                     if remat else _attend_block(*args))
-    return torch.cat(outs, dim=1)
+    out = torch.cat(outs, dim=2)  # (B, M, Sl, H, hd_v)
+    return out.reshape(B, Sq, H, out.shape[-1])
 
 
 def attention_forward(params, x, cfg, positions=None, causal: bool = True,
@@ -132,7 +163,8 @@ def attention_forward(params, x, cfg, positions=None, causal: bool = True,
 
     blocked: the training arm. q/k/v go through ``attend_blocked`` (torch
     ops under autograd, masked by position) instead of the flash kernel,
-    which has no backward."""
+    which has no backward. Meta tensors (the dry run) take it too, as the
+    reference's dry run lowers its ``attend_blocked``."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -147,13 +179,15 @@ def attention_forward(params, x, cfg, positions=None, causal: bool = True,
         q = x @ params["wq"]
         if cfg.qkv_bias:
             q = q + params["bq"]
-        q = q.reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+        q = constrain(q.reshape(B, S, cfg.num_heads, cfg.resolved_head_dim),
+                      "batch", None, "model", None)
         k, v, kv_positions = kv_override
-    if blocked:
+    if blocked or x.device.type == "meta":
         out = attend_blocked(q, k, v, positions, kv_positions, causal)
     else:
         out = ops.flash_attention(q, k, v, causal=causal)
-    return out.reshape(B, S, -1) @ params["wo"], (k, v)
+    out = out.reshape(B, S, -1) @ params["wo"]
+    return constrain(out, "batch", None, None), (k, v)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype, device):
@@ -171,11 +205,14 @@ def decode_step_attention(params, x_step, cache, cur_len: int, cfg,
     cache (the new token's position). The cache is updated IN PLACE (the
     JAX package returns a new one): the new token's k/v are written at
     ``cur_len`` and the same dict is returned. Returns (out (B,1,d), cache).
+
+    seq_axis="<mesh axis>" inside ``activation_sharding(device_mesh)``: the
+    cache is this rank's shard of the positions (S_local of them, from
+    coordinate × S_local on that axis); each rank attends over its shard and
+    the shards' partials combine over the axis's process group
+    (``sharding.combine_partials``). Otherwise (no context, or one without a
+    real ``DeviceMesh``) the cache is whole, as the reference's plain path.
     """
-    if seq_axis is not None:
-        raise NotImplementedError(
-            "a sequence-sharded KV cache (seq_axis) needs a device mesh; on "
-            "one card the port has none: ROADMAP Queue A item 14")
     B = x_step.shape[0]
     hd = cfg.resolved_head_dim
     q, k_new, v_new = _project_qkv(params, x_step, cfg)  # (B,1,H,hd)
@@ -183,15 +220,49 @@ def decode_step_attention(params, x_step, cache, cur_len: int, cfg,
     cos, sin = layers.rope_angles(pos, hd, cfg.rope_theta)
     q = layers.apply_rope(q, cos, sin)
     k_new = layers.apply_rope(k_new, cos, sin)
-    out = _cached_attention_core(q, k_new, v_new, cache, cur_len)
+    out = _cached_attention_core(q, k_new, v_new, cache, cur_len,
+                                 sharding.seq_shards(seq_axis))
     return out.reshape(B, 1, cfg.num_heads * hd) @ params["wo"], cache
 
 
-def _cached_attention_core(q, k_new, v_new, cache, cur_len: int):
+def _cached_attention_core(q, k_new, v_new, cache, cur_len: int,
+                           shards: Optional[sharding.SeqShards] = None):
     """Write the new token's k/v at ``cur_len`` (no write past the cache,
     as the JAX package's clipped, masked write), then attend over
-    positions <= cur_len. Returns (B, H, hd) in q's dtype."""
-    if 0 <= cur_len < cache["k"].shape[1]:
-        cache["k"][:, cur_len] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][:, cur_len] = v_new[:, 0].to(cache["v"].dtype)
-    return ops.decode_attention(q[:, 0], cache["k"], cache["v"], cur_len)
+    positions <= cur_len. Returns (B, H, hd) in q's dtype.
+
+    With ``shards`` the cache holds positions [shard0, shard0 + S_local):
+    only the owning rank writes, each rank's partial (its output and
+    log-sum-exp, from B4 on the card) combines with the others'; a shard
+    wholly past ``cur_len`` contributes nothing and launches nothing."""
+    if shards is not None:  # DTensors (the dry run) to their local shards
+        return sharding.on_local_shards(
+            lambda q, kn, vn, c: _cached_local_core(q, kn, vn, c, cur_len,
+                                                    shards),
+            (q, k_new, v_new), cache, shards)
+    return _cached_local_core(q, k_new, v_new, cache, cur_len, None)
+
+
+def _cached_local_core(q, k_new, v_new, cache, cur_len: int, shards):
+    """``_cached_attention_core`` on plain tensors: the whole cache, or
+    this rank's shard of it."""
+    S_local = cache["k"].shape[1]
+    shard0 = 0 if shards is None else shards.coord * S_local
+    local = cur_len - shard0
+    if 0 <= local < S_local:
+        cache["k"][:, local] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, local] = v_new[:, 0].to(cache["v"].dtype)
+    if shards is None:
+        return ops.decode_attention(q[:, 0], cache["k"], cache["v"], cur_len)
+    B, _, H, hd = q.shape
+    if local < 0:
+        o = torch.zeros((B, H, hd), dtype=torch.float32, device=q.device)
+        lse = torch.full((B, H), float("-inf"), device=q.device)
+        l_sum = torch.zeros((B, H), device=q.device)
+    else:
+        o, lse = ops.decode_attention(q[:, 0], cache["k"], cache["v"], local,
+                                      return_lse=True)  # o in float32
+        if shards.size == 1:
+            return o.to(q.dtype)
+        l_sum = torch.ones_like(lse)
+    return sharding.combine_partials(lse, l_sum, o, shards).to(q.dtype)

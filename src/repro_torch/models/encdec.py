@@ -33,8 +33,14 @@ def init_encdec_params(cfg, seed: int = 0, device="cuda"):
     """Random parameters from ``seed`` on ``device`` (the reference's
     distributions, not its bits)."""
     dev = resolve_device(device)
+    return build_encdec_params(cfg,
+                               torch.Generator(device=dev).manual_seed(seed))
+
+
+def build_encdec_params(cfg, gen: torch.Generator):
+    """The parameter tree drawn from ``gen``, on ``gen.device``."""
+    dev = gen.device
     dtype = DTYPES[cfg.dtype]
-    gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
     vp = lm_head_vocab(cfg)
     n_enc = cfg.encoder_layers
@@ -169,9 +175,17 @@ def decoder_forward(params, cfg, tokens, enc_out):
 
 def init_encdec_caches(cfg, batch: int, max_len: int, enc_len: int, dtype,
                        device):
+    return build_encdec_caches(cfg, batch, max_len, enc_len, dtype,
+                               resolve_device(device))
+
+
+def build_encdec_caches(cfg, batch: int, max_len: int, enc_len: int, dtype,
+                        dev: torch.device):
+    """``init_encdec_caches`` on a ``torch.device`` as it is (``meta`` for
+    the dry run's stand-ins)."""
     n_dec = cfg.num_layers - cfg.encoder_layers
     hd = cfg.resolved_head_dim
-    kw = dict(dtype=dtype, device=resolve_device(device))
+    kw = dict(dtype=dtype, device=dev)
     self_shape = (batch, max_len, cfg.num_kv_heads, hd)
     cross_shape = (batch, enc_len, cfg.num_kv_heads, hd)
     return [{"k": torch.zeros(self_shape, **kw),

@@ -18,6 +18,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                scale: Optional[float] = None):
@@ -102,15 +104,17 @@ def init_gated_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype):
 
 
 def gated_mlp(params, x, kind: str = "swiglu"):
-    gate = x @ params["wi_gate"]
-    up = x @ params["wi_up"]
+    spec = ["batch"] + [None] * (x.ndim - 2) + ["model"]
+    gate = constrain(x @ params["wi_gate"], *spec)
+    up = constrain(x @ params["wi_up"], *spec)
     if kind == "swiglu":
         act = F.silu(gate)
     elif kind == "geglu":
         act = F.gelu(gate, approximate="tanh")
     else:
         raise ValueError(kind)
-    return (act * up) @ params["wo"]
+    return constrain((act * up) @ params["wo"],
+                     "batch", *([None] * (x.ndim - 1)))
 
 
 def padded_vocab(vocab_size: int, multiple: int = 2048) -> int:

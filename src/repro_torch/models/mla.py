@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models import layers
 from repro_torch.models.attention import NEG_INF, attend_blocked
 
@@ -95,11 +96,11 @@ def mla_decode_step(params, x_step, cache, cur_len: int, cfg,
 
     x_step: (B, 1, d); cur_len: host int, the new token's position. The
     cache is written at ``cur_len`` in place (nothing past the cache is
-    written). Returns (out (B, 1, d), cache)."""
-    if seq_axis is not None:
-        raise NotImplementedError(
-            "a sequence-sharded MLA cache (seq_axis) needs a device mesh; on "
-            "one card the port has none: ROADMAP Queue A item 14")
+    written). Returns (out (B, 1, d), cache).
+
+    seq_axis inside ``activation_sharding(device_mesh)``: the cache is this
+    rank's shard of the positions, combined over the axis's process group
+    as ``attention.decode_step_attention`` does."""
     m = cfg.mla
     B = x_step.shape[0]
     H = cfg.num_heads
@@ -112,7 +113,7 @@ def mla_decode_step(params, x_step, cache, cur_len: int, cfg,
                               cfg.norm_eps)
     kr_new = _rope_key(params, x_step, cfg, pos)[:, :, 0, :]
     out_c = _cached_mla_core(q_abs, q_rope, ckv_new, kr_new, cache, cur_len,
-                             cfg)
+                             cfg, sharding.seq_shards(seq_axis))
     return _mla_output(params, out_c, x_step, cfg), cache
 
 
@@ -125,27 +126,48 @@ def _mla_output(params, out_c, x_step, cfg):
     return out.reshape(B, 1, H * m.v_head_dim) @ params["wo"]
 
 
-def _cached_mla_core(q_abs, q_rope, ckv_new, kr_new, cache, cur_len: int, cfg):
+def _cached_mla_core(q_abs, q_rope, ckv_new, kr_new, cache, cur_len: int, cfg,
+                     shards=None):
     """Cache write at ``cur_len`` (none past the cache), then absorbed
     attention over positions <= cur_len. The cache stays in its dtype and
     the products accumulate in float32 (the reference's
     ``preferred_element_type``). Returns the attention-weighted latent
-    (B, 1, H, r) in float32."""
+    (B, 1, H, r) in float32. With ``shards`` (``sharding.SeqShards``) the
+    cache holds positions [shard0, shard0 + S): only the owner writes, and
+    the shards' partials combine (``sharding.combine_partials``)."""
+    if shards is not None:  # DTensors (the dry run) to their local shards
+        return sharding.on_local_shards(
+            lambda qa, qr, cn, kn, c: _cached_local_core(
+                qa, qr, cn, kn, c, cur_len, cfg, shards),
+            (q_abs, q_rope, ckv_new, kr_new), cache, shards)
+    return _cached_local_core(q_abs, q_rope, ckv_new, kr_new, cache, cur_len,
+                              cfg, None)
+
+
+def _cached_local_core(q_abs, q_rope, ckv_new, kr_new, cache, cur_len: int,
+                       cfg, shards):
+    """``_cached_mla_core`` on plain tensors: the whole cache, or this
+    rank's shard of it."""
     m = cfg.mla
     S = cache["ckv"].shape[1]
-    if 0 <= cur_len < S:
-        cache["ckv"][:, cur_len] = ckv_new[:, 0].to(cache["ckv"].dtype)
-        cache["kr"][:, cur_len] = kr_new[:, 0].to(cache["kr"].dtype)
+    shard0 = 0 if shards is None else shards.coord * S
+    local = cur_len - shard0
+    if 0 <= local < S:
+        cache["ckv"][:, local] = ckv_new[:, 0].to(cache["ckv"].dtype)
+        cache["kr"][:, local] = kr_new[:, 0].to(cache["kr"].dtype)
     ckv = cache["ckv"].float()
-    valid = torch.arange(S, device=ckv.device) <= cur_len
+    valid = torch.arange(S, device=ckv.device) <= local
     scale = 1.0 / torch.tensor(float(m.qk_nope_head_dim + m.qk_rope_head_dim),
                                dtype=torch.float32).sqrt()
     scores = (torch.einsum("bthr,bsr->bths", q_abs.float(), ckv)
               + torch.einsum("bthp,bsp->bths", q_rope.float(),
                              cache["kr"].float())) * scale.to(ckv.device)
     scores = torch.where(valid, scores, NEG_INF)
-    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    m_loc = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m_loc)
     p = torch.where(valid, p, 0.0)
     l_sum = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bths,bsr->bthr", p.to(cache["ckv"].dtype).float(), ckv)
-    return o / l_sum.clamp(min=1e-30)
+    if shards is None:
+        return o / l_sum.clamp(min=1e-30)
+    return sharding.combine_partials(m_loc[..., 0], l_sum[..., 0], o, shards)

@@ -4,11 +4,13 @@ analytic parameter counts and MODEL_FLOPS (the JAX package's
 
 Every family of the JAX package is served and trained: decoder-only stacks
 (``transformer``: attention blocks, the mamba/attention hybrid, xLSTM) and
-the encoder-decoder (``encdec``). ``input_specs`` and ``param_specs``
-build ``jax.ShapeDtypeStruct`` stand-ins for the TPU dry run and have no
-counterpart here (item 14).
+the encoder-decoder (``encdec``). ``input_specs`` and ``param_specs`` make
+meta tensors, the dry run's stand-ins for the reference's
+``jax.ShapeDtypeStruct``s: shapes and dtypes, nothing allocated or drawn.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, mamba, transformer
@@ -60,6 +62,65 @@ def init_decode_caches(cfg, batch: int, max_len: int, device="cuda"):
         return encdec.init_encdec_caches(cfg, batch, max_len, max_len, dtype,
                                          dev)
     return transformer.init_decode_caches(cfg, batch, max_len, dtype, dev)
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors: shapes and dtypes, no allocation)
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+class _NoDraw(torch.Generator):
+    """A generator whose every tensor is made on ``meta``: the init code's
+    shapes and dtypes, with no bits drawn."""
+
+    @property
+    def device(self):
+        return META
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def input_specs(cfg, shape):
+    """Meta stand-ins for a cell's inputs, of the reference's shapes and
+    dtypes (its ``ShapeDtypeStruct``s); decode caches in the port's
+    per-layer layout."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    f = transformer.DTYPES[cfg.dtype]
+
+    if shape.kind in ("train", "prefill"):
+        if is_encdec(cfg):
+            batch = {"frames": _meta((B, S, cfg.d_model), f),
+                     "tokens": _meta((B, S), i32)}
+        else:
+            batch = {"tokens": _meta((B, S), i32)}
+        if shape.kind == "train":
+            batch["labels"] = _meta((B, S), i32)
+        if not is_encdec(cfg) and cfg.frontend_tokens > 0:
+            batch["frontend"] = _meta((B, cfg.frontend_tokens, cfg.d_model),
+                                      f)
+        return batch
+
+    if shape.kind == "decode":
+        if is_encdec(cfg):
+            caches = encdec.build_encdec_caches(cfg, B, S, S, f, META)
+        else:
+            caches = transformer.build_decode_caches(cfg, B, S, f, META)
+        return {"token": _meta((B, 1), i32), "caches": caches,
+                "cur_len": _meta((), i32)}
+    raise ValueError(shape.kind)
+
+
+def param_specs(cfg):
+    """The parameter tree as meta tensors (the port's per-layer layout),
+    without allocating or drawing them."""
+    if is_encdec(cfg):
+        return encdec.build_encdec_params(cfg, _NoDraw())
+    return transformer.build_lm_params(cfg, _NoDraw())
 
 
 # ---------------------------------------------------------------------------

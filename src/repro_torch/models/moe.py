@@ -20,6 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers
 from repro_torch.vector.cagra import smallest_k
 
@@ -29,9 +30,10 @@ ROUTER_DTYPE = torch.float32
 def _expert_stack(gen: torch.Generator, E: int, d_in: int, d_out: int,
                   scale: float, dtype):
     """(E, d_in, d_out) N(0, scale²) weights, drawn one expert at a time in
-    float32 and cast (a whole f32 stack of deepseek-v3's experts is 15 GB)."""
+    float32 and cast (a whole f32 stack of deepseek-v3's experts is 15 GB).
+    On ``meta`` (``model_zoo.param_specs``) nothing is drawn."""
     w = torch.empty((E, d_in, d_out), dtype=dtype, device=gen.device)
-    for e in range(E):
+    for e in range(E if gen.device.type != "meta" else 0):
         w[e] = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
                            device=gen.device).mul_(scale)
     return w
@@ -84,7 +86,10 @@ def moe_forward(params, x, cfg, capacity: int = 0):
     gates, expert_idx = route_topk(logits, k)  # (T, k)
 
     # load-balancing aux loss (Switch-style): E * sum_e f_e * P_e
-    occupancy = torch.bincount(expert_idx.reshape(-1), minlength=E).float()
+    # counts by scatter_add (bincount has no meta kernel: the dry run)
+    flat_idx = expert_idx.reshape(-1)
+    occupancy = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+        0, flat_idx, torch.ones_like(flat_idx)).float()
     f_e = occupancy / (T * k)
     p_e = torch.softmax(logits, dim=-1).mean(dim=0)
     aux_loss = E * torch.sum(f_e * p_e)
@@ -108,11 +113,12 @@ def moe_forward(params, x, cfg, capacity: int = 0):
     slot_tok, slot_gate = slot_tok[:E * C], slot_gate[:E * C]
     xe = torch.where((slot_tok < T)[:, None], x[slot_tok.clamp(max=T - 1)],
                      torch.zeros((), dtype=x.dtype, device=dev))
-    xe = xe.reshape(E, C, d)
+    xe = constrain(xe.reshape(E, C, d), "model", None, None)
 
     # batched expert FFN over the leading expert axis
     h = F.silu(torch.bmm(xe, params["w_gate"])) * torch.bmm(xe, params["w_up"])
-    y = torch.bmm(h, params["w_down"]).reshape(E * C, d).float()
+    y = constrain(torch.bmm(h, params["w_down"]), "model", None, None)
+    y = y.reshape(E * C, d).float()
     y = torch.cat([y * slot_gate[:, None], y.new_zeros((1, d))])  # row E*C: 0
 
     # combine: each token sums its kept slots in ascending slot order
@@ -122,6 +128,7 @@ def moe_forward(params, x, cfg, capacity: int = 0):
     out = torch.zeros((T, d), dtype=torch.float32, device=dev)
     for j in range(k):
         out = out + y[pair_slot[:, j]]
+    out = constrain(out, "batch", None)
 
     if m.num_shared_experts > 0:
         out = out + layers.gated_mlp(params["shared"], x, "swiglu").float()

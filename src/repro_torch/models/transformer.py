@@ -41,6 +41,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention, layers, mamba, mla, moe, xlstm
 
 # the parameter types the attention kernels take
@@ -132,10 +133,15 @@ def init_group(gen: torch.Generator, cfg, dtype):
 def init_lm_params(cfg, seed: int = 0, device="cuda"):
     """Random parameters from ``seed``, made one tensor at a time on
     ``device`` (the JAX package's distributions, not its bits)."""
-    group_layer_kinds(cfg)  # ValueError for a block kind with no stack
     dev = resolve_device(device)
+    return build_lm_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+
+
+def build_lm_params(cfg, gen: torch.Generator):
+    """The parameter tree drawn from ``gen``, on ``gen.device``."""
+    group_layer_kinds(cfg)  # ValueError for a block kind with no stack
+    dev = gen.device
     dtype = DTYPES[cfg.dtype]
-    gen = torch.Generator(device=dev).manual_seed(seed)
     vp = lm_head_vocab(cfg)
     params = {"embed": layers.embed_init(gen, vp, cfg.d_model, dtype)}
     groups = [init_group(gen, cfg, dtype) for _ in range(num_groups(cfg))]
@@ -164,7 +170,7 @@ def embed_tokens(params, cfg, tokens, frontend: Optional[torch.Tensor] = None):
         spliced = x.clone()
         spliced[:, :F_] = frontend.to(x.dtype)
         x = spliced
-    return x
+    return constrain(x, "batch", None, None)
 
 
 def lm_logits(params, cfg, x):
@@ -258,6 +264,7 @@ def backbone(params, cfg, x, positions):
                               use_reentrant=False)
         else:
             x, a = group_train(p, x, cfg, positions)
+        x = constrain(x, "batch", None, None)
         aux = aux + a
     return x, aux
 
@@ -286,11 +293,14 @@ def _xent_chunk(xc, W, lc, mc, vocab_size: int):
     """One sequence chunk's (Σ nll, Σ mask): (B,c,d) hidden, (B,c) labels
     and mask."""
     # padded-vocab ids never win: masked to finfo.min
-    logits = layers.mask_padded_logits((xc @ W).float(), vocab_size)
+    logits = layers.mask_padded_logits(
+        constrain((xc @ W).float(), "batch", None, "model"), vocab_size)
     lse = torch.logsumexp(logits, dim=-1)  # (B,c)
-    # the reference's one-hot einsum: every other term is 0 · finite
-    lab = logits.gather(-1, lc[..., None])[..., 0]
-    return torch.sum((lse - lab) * mc), torch.sum(mc)
+    # the reference's one-hot einsum: every other term is 0 · finite. The
+    # label's (B,c,1) dim goes after the subtraction: over vocab-sharded
+    # logits (the dry run) the gather's pending mask has that shape
+    lab = logits.gather(-1, lc[..., None])
+    return torch.sum((lse[..., None] - lab)[..., 0] * mc), torch.sum(mc)
 
 
 def chunked_xent(params, cfg, hidden, labels, mask):
@@ -340,7 +350,7 @@ def lm_loss(params, cfg, batch):
         emb = params["embed"]
         emb_next = emb[labels.clamp(max=emb.shape[0] - 1).long()]
         h = torch.cat([hidden.to(emb_next.dtype), emb_next], dim=-1)
-        h = h @ params["mtp"]["proj"]
+        h = constrain(h @ params["mtp"]["proj"], "batch", None, None)
         h, _ = _attn_layer_train(params["mtp"]["block"], h, cfg, positions,
                                  _uses_moe(cfg, 0))
         h = layers.rms_norm(h, params["mtp"]["norm"], cfg.norm_eps)
@@ -375,8 +385,15 @@ def _init_layer_cache(cfg, kind: str, batch: int, max_len: int, dtype,
 
 
 def init_decode_caches(cfg, batch: int, max_len: int, dtype, device):
+    return build_decode_caches(cfg, batch, max_len, dtype,
+                               resolve_device(device))
+
+
+def build_decode_caches(cfg, batch: int, max_len: int, dtype,
+                        dev: torch.device):
+    """``init_decode_caches`` on a ``torch.device`` as it is (``meta`` for
+    the dry run's stand-ins)."""
     kinds = group_layer_kinds(cfg)
-    dev = resolve_device(device)
     if cfg.block_kind == "attn":
         return [_init_layer_cache(cfg, "attn", batch, max_len, dtype, dev)
                 for _ in range(num_groups(cfg))]

@@ -54,8 +54,8 @@ def tree_unflatten(like, leaves):
 
 def init_opt_state(params) -> Dict[str, Any]:
     """{"m", "v": float32 zeros shaped like each leaf, "step": int64 0-d}."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    # zeros_like keeps a DTensor leaf's layout (the dry run's shards)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     leaf = tree_leaves(params)[0]
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int64, device=leaf.device)}

@@ -6,8 +6,8 @@ Gradients come from autograd over the leaves of the port's parameter tree
 (``torch.autograd.grad``). Microbatches run one after the other and their
 gradients accumulate in float32, ``g / n`` each, as the reference's
 ``lax.scan`` accumulates them; live activation memory is one microbatch's.
-On one card the reference's sharding constraints (``constrain``) are the
-identity (ROADMAP item A14).
+Each microbatch's slice keeps the batch's sharding pinned (``constrain``,
+the identity outside the dry run's ``activation_sharding``).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import model_zoo
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             init_opt_state, tree_leaves,
@@ -53,14 +54,15 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, num_microbatches: int = 1):
         if n == 1:
             loss, metrics, grads = value_and_grad(cfg, params, batch)
         else:
-            g_acc = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
+            g_acc = [torch.zeros_like(p, dtype=torch.float32)
                      for p in tree_leaves(params)]
             l_acc = torch.zeros((), dtype=torch.float32,
                                 device=g_acc[0].device)
             per_mb = []
             for i in range(n):
-                mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+                mb = {k: constrain(v.reshape(n, v.shape[0] // n,
+                                             *v.shape[1:]),
+                                   None, "batch", *([None] * (v.ndim - 1)))[i]
                       for k, v in batch.items()}
                 loss, metrics, g = value_and_grad(cfg, params, mb)
                 g_acc = [a + b.float() / n

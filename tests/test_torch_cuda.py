@@ -1282,3 +1282,71 @@ def test_ops_refuse_inputs_that_need_a_gradient_on_card(cuda, name):
     with torch.no_grad():
         assert torch.isfinite(call(True)).all()
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Hkv,hd,cur_len", [
+    (4, 544, 40, 10, 128, 543), (4, 544, 40, 10, 128, 0),  # phi3
+    (4, 544, 16, 16, 256, 543),  # gemma-7b
+    (4, 544, 64, 8, 128, 543), (4, 544, 64, 8, 128, 100),  # jamba, g 8
+    (2, 40, 12, 1, 16, 17), (2, 300, 14, 2, 64, 299)])
+def test_decode_attention_lse_matches_plain(cuda, dtype, B, S, H, Hkv, hd,
+                                            cur_len):
+    """B4 with ``return_lse``: its output (float32, unrounded) rounded to
+    q's dtype equals the launch without lse bit for bit, and out and lse
+    (float32, natural log of each head's sum of exp of its scaled scores)
+    match the plain version; one launch, counted under both names."""
+    from repro_torch.kernels import decode_attention, ops, ref
+
+    q = _randn((B, H, hd), 15, dtype, cuda)
+    k = _randn((B, S, Hkv, hd), 16, dtype, cuda)
+    v = _randn((B, S, Hkv, hd), 17, dtype, cuda)
+    before = dict(decode_attention.launches)
+    out, lse = ops.decode_attention(q, k, v, cur_len, return_lse=True)
+    plain = ops.decode_attention(q, k, v, cur_len)
+    want, want_lse = ref.decode_attn_ref(q, k, v, cur_len, return_lse=True)
+    torch.cuda.synchronize()
+    assert decode_attention.launches["decode_attention"] == \
+        before["decode_attention"] + 2
+    assert decode_attention.launches["decode_attention_lse"] == \
+        before["decode_attention_lse"] + 1
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert out.dtype == want.dtype == torch.float32
+    assert torch.equal(out.to(dtype), plain)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("M", [2, 4, 8])
+@pytest.mark.parametrize("cur_len", [543, 300, 40])
+def test_decode_attention_slices_combine_to_one_launch(cuda, M, cur_len):
+    """phi3's bf16 cache (4, 544, 10, 128) cut into M slices at multiples of
+    544 / M (inside a 32-position tile), each slice with a valid position
+    one B4 launch with lse (slices past cur_len launch nothing), combined
+    by the seqshard core's arithmetic (``sharding.merge_stacked``): equal
+    to one launch with lse over the whole (float32, unrounded) within
+    1e-3, its lse too."""
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+
+    B, S, H, Hkv, hd = 4, 544, 40, 10, 128
+    q = _randn((B, H, hd), 25, torch.bfloat16, cuda)
+    k = _randn((B, S, Hkv, hd), 26, torch.bfloat16, cuda)
+    v = _randn((B, S, Hkv, hd), 27, torch.bfloat16, cuda)
+    whole, whole_lse = ops.decode_attention(q, k, v, cur_len,
+                                            return_lse=True)
+    S_loc = S // M
+    parts = [ops.decode_attention(q, k[:, i * S_loc:(i + 1) * S_loc],
+                                  v[:, i * S_loc:(i + 1) * S_loc],
+                                  cur_len - i * S_loc, return_lse=True)
+             for i in range(M) if cur_len - i * S_loc >= 0]
+    lse = torch.stack([p[1] for p in parts])
+    m = lse.max(dim=0).values
+    alpha = torch.exp(lse - m)
+    got = sharding.merge_stacked(lse, torch.ones_like(lse),
+                                 torch.stack([p[0] for p in parts]))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, whole, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(m + torch.log(alpha.sum(0)), whole_lse,
+                               rtol=1e-3, atol=1e-3)

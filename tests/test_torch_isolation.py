@@ -143,7 +143,8 @@ def test_vector_pool_config_equal_to_jax():
 
 
 @pytest.mark.parametrize("name", ["MoEConfig", "MLAConfig", "ModelConfig",
-                                  "ShapeConfig", "AutoscalerConfig"])
+                                  "ShapeConfig", "AutoscalerConfig",
+                                  "MeshConfig"])
 def test_model_config_classes_equal_to_jax(name):
     jf = [(f.name, f.type, f.default) for f in
           dataclasses.fields(getattr(jbase, name))]
@@ -151,6 +152,19 @@ def test_model_config_classes_equal_to_jax(name):
           dataclasses.fields(getattr(tbase, name))]
     assert jf == tf
     assert getattr(tbase, name).__dataclass_params__.frozen
+
+
+@pytest.mark.parametrize("name", ["SINGLE_POD", "MULTI_POD", "TRAIN_4K",
+                                  "PREFILL_32K", "DECODE_32K", "LONG_500K"])
+def test_mesh_and_shape_constants_equal_to_jax(name):
+    """The production meshes and the shape set, exported by both packages'
+    ``configs``: equal field for field, with the same device counts."""
+    j, t = getattr(jconfigs, name), getattr(tconfigs, name)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    if name.endswith("_POD"):
+        assert j.num_devices == t.num_devices
+    assert [s.name for s in jconfigs.SHAPES.values()] == \
+        [s.name for s in tconfigs.SHAPES.values()]
 
 
 @pytest.mark.parametrize("arch", tconfigs.list_archs())

@@ -113,11 +113,20 @@ def test_mla_decode_past_the_cache_writes_nothing(layer):
 
 
 def test_mla_sequence_sharded_decode_raises(layer):
+    """seq_axis outside an ``activation_sharding`` context over a device
+    mesh takes the unsharded path, as the reference's does with no mesh in
+    its context (it raised before the mesh code was ported): the same
+    output and cache, bit for bit; the sharded path is
+    ``test_torch_seqshard.py``'s."""
     cfg, _, _, tp = layer
-    tc = mla.init_mla_cache(cfg, 1, 4, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        mla.mla_decode_step(tp, torch.zeros((1, 1, cfg.d_model)), tc, 0, cfg,
-                            seq_axis="model")
+    x = torch.from_numpy(_x(cfg, 1, 1, seed=5))
+    outs = []
+    for seq_axis in (None, "model"):
+        tc = mla.init_mla_cache(cfg, 1, 4, torch.float32, "cpu")
+        out, tc = mla.mla_decode_step(tp, x, tc, 0, cfg, seq_axis=seq_axis)
+        outs.append((out, tc))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all(torch.equal(outs[0][1][k], outs[1][1][k]) for k in tc)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -160,3 +169,44 @@ def test_attend_blocked_matches_jax(dtype, Sq, Sk, H, Hkv, hd, hd_v, causal,
         attention.gqa_values(torch.from_numpy(probs).to(td), T[2]).float().numpy(),
         np.asarray(jattn.gqa_values(jnp.asarray(probs, jd), J[2]), np.float32),
         **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk,H,Hkv,hd,M,block_q", [
+    (16, 16, 8, 2, 16, 4, 512),   # one q block per row shard
+    (32, 32, 8, 2, 16, 4, 4),     # two q blocks per row shard
+    (24, 40, 4, 1, 8, 4, 2),      # Sq != Sk, three blocks per shard
+    (48, 48, 2, 2, 24, 8, 4),     # M 8, hd_v 16 below
+    (10, 10, 4, 2, 8, 4, 512),    # M does not divide Sq: M = 1
+])
+def test_attend_blocked_seq_parallel_matches_jax(dtype, causal, Sq, Sk, H,
+                                                 Hkv, hd, M, block_q):
+    """attend_blocked at seq_parallel=M (the query rows split M ways on a
+    leading dim, each shard in blocks) against the JAX package's at the
+    same M: float32 at 1e-5, bfloat16 at 2e-2; and against the port's own
+    seq_parallel=0 at the same tolerances."""
+    rng = np.random.default_rng(Sq * M + H)
+    hd_v = 16 if M == 8 else hd
+    q, k = (rng.normal(size=(2, s, h, hd)).astype(np.float32)
+            for s, h in ((Sq, H), (Sk, Hkv)))
+    v = rng.normal(size=(2, Sk, Hkv, hd_v)).astype(np.float32)
+    qpos = np.arange(Sk - Sq, Sk, dtype=np.int32) if Sq <= Sk \
+        else np.arange(Sq, dtype=np.int32)
+    kpos = np.arange(Sk, dtype=np.int32)
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    tol = TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    J = [jnp.asarray(a, jd) for a in (q, k, v)]
+    T = [torch.from_numpy(a).to(td) for a in (q, k, v)]
+    tp = (torch.from_numpy(qpos), torch.from_numpy(kpos))
+    jo = jattn.attend_blocked(J[0], J[1], J[2], jnp.asarray(qpos),
+                              jnp.asarray(kpos), causal, block_q=block_q,
+                              seq_parallel=M)
+    to = attention.attend_blocked(*T, *tp, causal, block_q=block_q,
+                                  seq_parallel=M)
+    assert to.shape == (2, Sq, H, hd_v) and to.dtype == td
+    np.testing.assert_allclose(to.float().numpy(), np.asarray(jo, np.float32),
+                               **tol)
+    one = attention.attend_blocked(*T, *tp, causal, block_q=block_q,
+                                   seq_parallel=0)
+    np.testing.assert_allclose(to.float().numpy(), one.float().numpy(), **tol)

@@ -410,8 +410,17 @@ def test_unknown_block_kind_raises():
 
 
 def test_sequence_sharded_decode_raises(models):
+    """seq_axis with no device mesh in the ``activation_sharding`` context
+    decodes over the whole cache, as the reference's plain branch does (it
+    raised before the mesh code was ported): logits and caches equal to
+    the decode without it, bit for bit."""
     cfg, _, tp = models["phi3-medium-14b"]
-    caches = model_zoo.init_decode_caches(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        model_zoo.decode_fn(cfg, tp, torch.zeros((1, 1), dtype=torch.int32),
-                            caches, 0, seq_axis="model")
+    tok = torch.zeros((1, 1), dtype=torch.int32)
+    runs = []
+    for seq_axis in (None, "model"):
+        caches = model_zoo.init_decode_caches(cfg, 1, 4, device="cpu")
+        runs.append(model_zoo.decode_fn(cfg, tp, tok, caches, 0,
+                                        seq_axis=seq_axis))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert all(torch.equal(a[k], b[k]) for k in a)
