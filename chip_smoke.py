@@ -2400,7 +2400,9 @@ def training_phases(smi):
           f"host wall {y['blocked_wall_ms']:.4f} ms; "
           f"scaled_dot_product_attention device busy {y['sdpa_ms']:.5f} ms "
           f"in {y['sdpa_kernels']:.0f} kernels "
-          f"({y['blocked_ms'] / y['sdpa_ms']:.2f}x), "
+          + (f"({y['blocked_ms'] / y['sdpa_ms']:.2f}x), " if y["sdpa_ms"]
+             else "(the profiler saw none of its kernels: ratio not "
+             "measured), ") +
           f"host wall {y['sdpa_wall_ms']:.4f} ms; outputs "
           f"and gradients within {y['err']:.3g} | {no_kernel} | {smi} | "
           f"{time.perf_counter() - t0:.1f} s", flush=True)

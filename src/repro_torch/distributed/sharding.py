@@ -324,10 +324,21 @@ def reshard_fallbacks():
             name = func.overloadpacket.__name__
             if name not in VIEW_OPS and name not in REPLICATED_OPS:
                 return func(*args, **kwargs)
+            from repro_torch.launch import cost
+
+            counter = cost.active()
+            counts = counter.counts() if counter is not None else None
             try:
                 return func(*args, **kwargs)
             except (RuntimeError, NotImplementedError, AssertionError):
-                self.fired[str(func)] += 1
+                if counter is not None:
+                    # the attempt's local ops (DTensor runs some before it
+                    # finds no strategy, the first time only) count nothing
+                    counter.set_counts(counts)
+                # as often as the counter counts the op (a scan's middle
+                # step stands for several)
+                self.fired[str(func)] += (counter.scale_now()
+                                          if counter is not None else 1)
                 if name not in VIEW_OPS:
                     return self._replicated(func, args, kwargs)
             x, shape = args[0], list(args[1])

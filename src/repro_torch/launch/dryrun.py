@@ -158,7 +158,8 @@ def trace_cell(cfg, shape, abstract, variant: str = "baseline") -> dict:
     fn, args = build_step(cfg, shape, device_mesh, variant=variant)
     t_build = time.time() - t0  # repro-analyze: disable=DET002 (wall-clock reporting of real work)
     seq_par = 16 if variant == "seqpar" else 0
-    counter = CostCounter(deadline=time.monotonic() + TRACE_BUDGET_S)  # repro-analyze: disable=DET002 (the dry run's trace budget, not sim time)
+    counter = CostCounter(deadline=time.monotonic() + TRACE_BUDGET_S,  # repro-analyze: disable=DET002 (the dry run's trace budget, not sim time)
+                          device="meta")
     grad = torch.enable_grad() if shape.kind == "train" else torch.no_grad()
     fallbacks = shard.reshard_fallbacks()
     try:
@@ -179,6 +180,8 @@ def trace_cell(cfg, shape, abstract, variant: str = "baseline") -> dict:
             "argument_size": _local_bytes(args),
             "output_size": _local_bytes(out),
             "temp_size": totals["peak_bytes"],
+            # the most temp_size may exceed the unrolled loops' (cost.py)
+            "temp_slack": totals["held_bytes"],
             "fallbacks": dict(fallbacks.fired)}
 
 

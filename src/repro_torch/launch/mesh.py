@@ -82,6 +82,24 @@ def make_host_mesh(model_axis: int = 1, device="cuda"):
                             mesh_dim_names=AXES)
 
 
+def _clear_dtensor_caches():
+    """DTensor's sharding and redistribution caches hand back the specs
+    they made, meshes and their (destroyed) groups included, to an equal
+    mesh made later: empty them with the group (those this torch has)."""
+    import torch
+    from torch.distributed.tensor import DTensor, _redistribute
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for cache in (getattr(prop, "propagate_op_sharding", None),
+                  getattr(prop, "_propagate_tensor_meta_cached", None),
+                  getattr(_redistribute, "_gen_transform_infos", None)):
+        if hasattr(cache, "cache_clear"):
+            cache.cache_clear()
+    clear = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None)
+    if clear is not None:  # the C++ dispatch's own copy
+        clear()
+
+
 def planning_mesh(abstract: AbstractMesh):
     """A ``DeviceMesh`` of ``abstract``'s shape and names over PyTorch's
     fake process group (rank 0 of ``abstract.size``; collectives are
@@ -100,6 +118,7 @@ def planning_mesh(abstract: AbstractMesh):
                 "its own (python -m repro_torch.launch.dryrun)")
         if dist.get_world_size() != abstract.size:
             dist.destroy_process_group()
+            _clear_dtensor_caches()
     if not dist.is_initialized():
         dist.init_process_group("fake", store=FakeStore(), rank=0,
                                 world_size=abstract.size)

@@ -2,11 +2,12 @@
 recurrent update for decode — the JAX package's ``models/mamba.py``.
 
 The recurrence h_t = a_t ⊙ h_{t-1} + b_t is computed chunk by chunk: a
-plain loop over the chunk's positions (torch has no
-``lax.associative_scan``), h carried across chunks as the reference's
-``lax.scan`` carries it. Only one chunk's (B, Lc, d_inner, d_state)
-elements exist at a time (the reference stacks ``h`` over the whole
-sequence; at jamba's widths that is 2.1 GB a tensor at B 4, S 512). The
+``scan`` over the chunk's positions (torch has no
+``lax.associative_scan``) writes h into the chunk's one buffer in place,
+h carried across chunks by a ``scan`` as the reference's ``lax.scan``
+carries it. Only one chunk's (B, Lc, d_inner, d_state) elements exist at
+a time (the reference stacks ``h`` over the whole sequence; at jamba's
+widths that is 2.1 GB a tensor at B 4, S 512). The
 sums run in another order than XLA's tree, so float32 results agree with
 the reference to rounding (the tests state 1e-5). No TPU kernel stands
 behind the block: it is torch ops on every device.
@@ -18,7 +19,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers
+from repro_torch.models.scan import scan
 
 # leaves the reference keeps float32 in a bfloat16 model
 F32_LEAVES = ("A_log", "D")
@@ -91,10 +94,17 @@ def _causal_conv(params, x, cfg, conv_state=None):
 def _scan_chunk(a, b, h):
     """h_t = a_t·h_{t-1} + b_t over the chunk's positions (axis 1), from
     h. Returns (h at every position (B, Lc, di, ds), the last one)."""
-    out = torch.empty_like(b)
-    for t in range(a.shape[1]):
-        h = torch.addcmul(b[:, t], a[:, t], h)
-        out[:, t] = h
+    def step(carry, t):
+        h, out = carry
+        h = torch.addcmul(b[:, int(t)], a[:, int(t)], h)
+        out[:, int(t)] = h
+        return (h, out), None
+
+    # the position index on the host: the step slices a and b and writes h
+    # into the chunk's one buffer as the loop did (autograd's layouts kept);
+    # the buffer rides in the carry, so the dry run's count sees its writes
+    (h, out), _ = scan(step, (h, torch.empty_like(b)),
+                       torch.arange(a.shape[1]))
     return out, h
 
 
@@ -103,18 +113,24 @@ def _ssm(params, xin, cfg, chunk: int = 256):
     post-conv. Returns (y (B,S,di) float32 = C·h + D·xin, h at the end)."""
     B, S, di = xin.shape
     dt, B_ssm, C_ssm = _ssm_inputs(params, xin, cfg)
-    h = torch.zeros((B, di, cfg.mamba_d_state), dtype=torch.float32,
-                    device=xin.device)
+    # the layouts the chunks are sliced from (the identity outside the dry
+    # run): d_inner over "model", the d_state projections whole, reduced
+    # once here and not once a position
+    xin, dt = (constrain(t, "batch", None, "model") for t in (xin, dt))
+    B_ssm, C_ssm = (constrain(t, "batch", None, None) for t in (B_ssm, C_ssm))
+    h = constrain(xin.new_zeros((B, di, cfg.mamba_d_state),
+                                dtype=torch.float32), "batch", "model", None)
     Lc = layers.chunk_len(S, chunk)
-    ys = []
-    for s0 in range(0, S, Lc):
-        sl = slice(s0, s0 + Lc)
+
+    def step(h, i):
+        sl = slice(int(i) * Lc, (int(i) + 1) * Lc)
         a, b = _scan_elements(params, dt[:, sl], xin[:, sl], B_ssm[:, sl])
         h_all, h = _scan_chunk(a, b, h)
         del a, b
-        ys.append(torch.einsum("bsdn,bsn->bsd", h_all, C_ssm[:, sl]))
-        del h_all
-    y = torch.cat(ys, dim=1)
+        return h, torch.einsum("bsdn,bsn->bsd", h_all, C_ssm[:, sl])
+
+    h, ys = scan(step, h, torch.arange(S // Lc))
+    y = ys.movedim(0, 1).reshape(B, S, di)
     return y + params["D"] * xin.float(), h
 
 
@@ -125,11 +141,15 @@ def _gate_out(params, y, z, dtype):
 
 def mamba_block(params, x, cfg, chunk: int = 256):
     """x: (B,S,d) -> (out (B,S,d), the decode cache it leaves: h and the
-    conv tail)."""
+    conv tail). Its input and output are pinned whole over "model" (the
+    identity outside the dry run), as the reference pins the residual
+    stream: the projections then split their weights, not gather them."""
+    x = constrain(x, "batch", None, None)
     xin, z = (x @ params["in_proj"]).chunk(2, dim=-1)
     xin, conv_state = _causal_conv(params, xin, cfg)
     y, h_end = _ssm(params, xin, cfg, chunk)
-    return _gate_out(params, y, z, x.dtype), {"h": h_end, "conv": conv_state}
+    out = constrain(_gate_out(params, y, z, x.dtype), "batch", None, None)
+    return out, {"h": h_end, "conv": conv_state}
 
 
 def mamba_forward(params, x, cfg, chunk: int = 256):

@@ -11,9 +11,10 @@ mLSTM stabilised exponential gating (per head):
   h̃_t    = C_t q_t / max(|n_t · q_t|, 1)
 
 Prefill evaluates this chunk by chunk (within-chunk quadratic einsums, the
-(C, n, m) state carried across chunks in a Python loop); decode is the
-O(1) recurrent update. Gates and states are float32 inside a bfloat16
-model, cast where the reference casts. No TPU kernel stands behind either
+(C, n, m) state carried across chunks by ``scan``, as the reference's
+``lax.scan`` carries it); decode is the O(1) recurrent update. Gates and
+states are float32 inside a bfloat16 model, cast where the reference
+casts. No TPU kernel stands behind either
 block: they are torch ops on every device.
 """
 from __future__ import annotations
@@ -23,7 +24,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers
+from repro_torch.models.scan import scan
 
 M0 = -1e30  # the state's initial log-scale: b + M0 stays finite in float32
 
@@ -138,28 +141,46 @@ def _mlstm_chunk(q, k, v, i_g, f_g, state):
 
 def mlstm_block(params, x, cfg, chunk: int = 256):
     """The mLSTM block over a sequence. Returns (x + out, the decode
-    cache it leaves: C, n, m and the conv tail)."""
+    cache it leaves: C, n, m and the conv tail). Its input and output are
+    pinned whole over "model" (the identity outside the dry run), as the
+    reference pins the residual stream."""
+    x = constrain(x, "batch", None, None)
     B, S, _ = x.shape
     H = cfg.num_heads
     q, k, v, i_g, f_g, z, xm = _mlstm_qkvif(params, x, cfg)
     di = z.shape[-1]
     dh = di // H
     Lc = layers.chunk_len(S, chunk)
-    state = (torch.zeros((B, H, dh, dh), dtype=torch.float32, device=x.device),
-             torch.zeros((B, H, dh), dtype=torch.float32, device=x.device),
-             torch.full((B, H), M0, dtype=torch.float32, device=x.device))
-    hs = []
-    for s0 in range(0, S, Lc):
-        sl = slice(s0, s0 + Lc)
+    # the state is made from x (``new_*``) and takes the batch's layout:
+    # the identity outside the dry run
+    f32 = torch.float32
+    state = (x.new_zeros((B, H, dh, dh), dtype=f32),
+             x.new_zeros((B, H, dh), dtype=f32),
+             x.new_full((B, H), M0, dtype=f32))
+    state = tuple(constrain(t, "batch", *([None] * (t.ndim - 1)))
+                  for t in state)
+
+    # whole over "model" (xlstm-350m's 4 heads do not split 16 ways; the
+    # head dim split 16 ways gathers the state's products every chunk),
+    # their partial sums reduced once here and not once a chunk
+    q, k, v, i_g, f_g = (constrain(t, "batch", *([None] * (t.ndim - 1)))
+                         for t in (q, k, v, i_g, f_g))
+
+    def step(state, i):
+        sl = slice(int(i) * Lc, (int(i) + 1) * Lc)
         h, state = _mlstm_chunk(q[:, sl], k[:, sl], v[:, sl], i_g[:, sl],
                                 f_g[:, sl], state)
-        hs.append(h)
-    h = torch.cat(hs, dim=1).reshape(B, S, di)
+        return state, h
+
+    # the chunk index on the host: the step slices its chunk as the loop
+    # did, which keeps autograd's gradient layouts
+    state, hs = scan(step, state, torch.arange(S // Lc))
+    h = hs.movedim(0, 1).reshape(B, S, di)
     h = layers.rms_norm(h.to(x.dtype), params["out_norm"], cfg.norm_eps)
     h = h * F.silu(z)
     conv = torch.cat([xm.new_zeros((B, 3, di)), xm], dim=1)[:, -3:, :]
     cache = {"C": state[0], "n": state[1], "m": state[2], "conv": conv}
-    return x + h @ params["down"], cache
+    return constrain(x + h @ params["down"], "batch", None, None), cache
 
 
 def mlstm_forward(params, x, cfg, chunk: int = 256):
@@ -265,20 +286,28 @@ def _slstm_out(params, h, x, cfg):
 
 
 def slstm_block(params, x, cfg):
-    """The sLSTM block over a sequence: a Python loop over time (sLSTM has
-    no parallel form). Returns (x + out, its end state as a decode
-    cache)."""
+    """The sLSTM block over a sequence: a ``scan`` over time (sLSTM has no
+    parallel form). Returns (x + out, its end state as a decode cache).
+    Input and output pinned as ``mlstm_block``'s."""
+    x = constrain(x, "batch", None, None)
     B, S, d = x.shape
     H = cfg.num_heads
     xn = layers.rms_norm(x, params["norm"], cfg.norm_eps)
     xg = (xn @ params["w_x"] + params["bias"]).float()  # (B,S,4d)
-    state = init_slstm_cache(cfg, B, x.dtype, x.device)
-    state = (state["h"], state["c"], state["n"], state["m"])
-    hs = []
-    for t in range(S):
-        state = _slstm_cell(params, xg[:, t], state, H, d // H)
-        hs.append(state[0])
-    out = _slstm_out(params, torch.stack(hs, dim=1), x, cfg)
+    # ``init_slstm_cache``'s state, made from x and laid out as
+    # ``mlstm_block``'s
+    state = (x.new_zeros((B, d), dtype=torch.float32),) * 3 \
+        + (x.new_full((B, d), M0, dtype=torch.float32),)
+    state = tuple(constrain(t, "batch", None) for t in state)
+
+    def step(state, t):
+        state = _slstm_cell(params, xg[:, int(t)], state, H, d // H)
+        return state, state[0]
+
+    # the time index on the host, as ``mlstm_block``'s chunk index
+    state, hs = scan(step, state, torch.arange(S))
+    out = constrain(_slstm_out(params, hs.movedim(0, 1).contiguous(), x, cfg),
+                    "batch", None, None)
     return out, dict(zip(("h", "c", "n", "m"), state))
 
 

@@ -3,9 +3,10 @@ the host ``Trainer`` with checkpoint/restart fault tolerance (the JAX
 package's ``training/train_loop.py``).
 
 Gradients come from autograd over the leaves of the port's parameter tree
-(``torch.autograd.grad``). Microbatches run one after the other and their
-gradients accumulate in float32, ``g / n`` each, as the reference's
-``lax.scan`` accumulates them; live activation memory is one microbatch's.
+(``torch.autograd.grad``). Microbatches run one after the other through
+``models/scan.py`` and their gradients accumulate in float32, ``g / n``
+each, as the reference's ``lax.scan`` accumulates them; live activation
+memory is one microbatch's.
 Each microbatch's slice keeps the batch's sharding pinned (``constrain``,
 the identity outside the dry run's ``activation_sharding``).
 """
@@ -19,6 +20,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import model_zoo
+from repro_torch.models.scan import scan
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             init_opt_state, tree_leaves,
                                             tree_unflatten)
@@ -54,25 +56,27 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, num_microbatches: int = 1):
         if n == 1:
             loss, metrics, grads = value_and_grad(cfg, params, batch)
         else:
-            g_acc = [torch.zeros_like(p, dtype=torch.float32)
-                     for p in tree_leaves(params)]
-            l_acc = torch.zeros((), dtype=torch.float32,
-                                device=g_acc[0].device)
-            per_mb = []
-            for i in range(n):
+            def step(carry, i):
+                g_acc, l_acc = carry
                 mb = {k: constrain(v.reshape(n, v.shape[0] // n,
                                              *v.shape[1:]),
-                                   None, "batch", *([None] * (v.ndim - 1)))[i]
+                                   None, "batch", *([None] * (v.ndim - 1))
+                                   )[int(i)]
                       for k, v in batch.items()}
                 loss, metrics, g = value_and_grad(cfg, params, mb)
                 g_acc = [a + b.float() / n
                          for a, b in zip(g_acc, tree_leaves(g))]
-                l_acc = l_acc + loss / n
-                per_mb.append(metrics)
+                return (g_acc, l_acc + loss / n), metrics
+
+            g_acc = [torch.zeros_like(p, dtype=torch.float32)
+                     for p in tree_leaves(params)]
+            l_acc = torch.zeros((), dtype=torch.float32,
+                                device=g_acc[0].device)
+            # the microbatch index on the host: the step slices it out
+            (g_acc, loss), metrics = scan(step, (g_acc, l_acc),
+                                          torch.arange(n))
             grads = tree_unflatten(params, g_acc)
-            metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
-                       for k in per_mb[0]}
-            loss = l_acc
+            metrics = {k: v.mean() for k, v in metrics.items()}
         params, opt_state, opt_metrics = adamw_update(opt_cfg, params, grads,
                                                       opt_state)
         metrics = dict(metrics)

@@ -2,10 +2,13 @@
 (``launch/cost.py``), the counterparts of the JAX package's
 ``launch/dryrun.py`` and ``launch/hlo_cost.py``, on the CPU.
 
-The counter counts a loop body as often as it runs (the reference's
-trip-count property, eager by construction), a collective's result bytes,
-and over DTensors the local shards' work, not the global op's; a dense
-smoke config's prefill flops equal a hand count exactly. The dry run on
+The counter counts a Python loop's body as often as it runs and a
+``models/scan.py`` scan by its trip count (the reference's trip-count
+property), a collective's result bytes, and over DTensors the local
+shards' work, not the global op's; a dense smoke config's prefill flops
+equal a hand count exactly. The recurrent families' small cells (xlstm and
+jamba, a train and a prefill shape) count exactly what the unrolled loops
+count. The dry run on
 the deepseek-moe-16b smoke config (``TRAIN_4K`` cut to seq 64 and batch 8,
 a (2, 4) mesh over the fake backend) counts flops, collectives and
 argument bytes, as the reference's test asserts; beside them it prints the
@@ -26,7 +29,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import TRAIN_4K, PREFILL_32K, get_smoke_config  # noqa: E402
 from repro_torch.launch import dryrun, mesh  # noqa: E402
 from repro_torch.launch.cost import CostCounter  # noqa: E402
-from repro_torch.models import model_zoo, transformer  # noqa: E402
+from repro_torch.models import layers, model_zoo, transformer  # noqa: E402
+from repro_torch.models import scan as scan_mod  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 SMALL = dataclasses.replace(TRAIN_4K, seq_len=64, global_batch=8)
@@ -243,3 +247,59 @@ def test_counter_deadline_names_the_op():
     with pytest.raises(TimeoutError, match="aten.mm"):
         with CostCounter(deadline=time.monotonic() - 1.0):  # repro-analyze: disable=DET002 (a deadline already past, not sim time)
             x @ x
+
+
+# the scans each case runs counted: (the function that calls ``scan``, n − 4)
+SCANS = {"xlstm-350m": {("slstm_block", 20), ("mlstm_block", 2)},
+         "jamba-1.5-large-398b": {("_ssm", 2), ("_scan_chunk", 2)},
+         "deepseek-moe-16b": {("train_step", 2)}}
+
+
+@pytest.mark.parametrize("arch,base,seq,chunk,microbatches", [
+    ("xlstm-350m", TRAIN_4K, 24, 4, 1),
+    ("xlstm-350m", PREFILL_32K, 24, 4, 1),
+    ("jamba-1.5-large-398b", TRAIN_4K, 36, 6, 1),
+    ("jamba-1.5-large-398b", PREFILL_32K, 36, 6, 1),
+    ("deepseek-moe-16b", TRAIN_4K, 32, 256, 6),
+], ids=lambda v: getattr(v, "name", str(v)))
+def test_counted_scans_equal_the_unrolled_loops(arch, base, seq, chunk,
+                                                 microbatches, monkeypatch):
+    """The smoke config on a (2, 4) planning mesh, the sequence cut to 6
+    chunks (of 4 for xlstm, of 6 positions for jamba: the mLSTM and mamba
+    chunk scans, mamba's position scans and the sLSTM's steps all run
+    counted) and one microbatch of batch 4; deepseek-moe-16b's train step
+    in 6 microbatches of 2 (the microbatch scan, the MoE's replicated ops
+    inside it). The counted path ran: each scan of the case entered
+    ``repeat`` with its n − 4 (``SCANS``), and the unrolled trace (the
+    same code with the counted path switched off here) entered none.
+    Flops, bytes accessed, every
+    collective kind and the fallbacks fired are equal; the peak bytes are
+    equal in forward and, in train (its backward and the groups' recompute
+    under ``torch.utils.checkpoint``), at least the unrolled trace's and
+    at most ``temp_slack`` above it (``launch/cost.py``)."""
+    from test_torch_scan import _spy_repeat
+
+    calls = _spy_repeat(monkeypatch)
+    chunk_len = layers.chunk_len
+    monkeypatch.setattr(layers, "chunk_len",
+                        lambda S, _=256: chunk_len(S, chunk))
+    monkeypatch.setattr(dryrun, "num_microbatches_for",
+                        lambda *a, **kw: microbatches)
+    cfg = get_smoke_config(arch)
+    shape = dataclasses.replace(base, seq_len=seq,
+                                global_batch=max(4, 2 * microbatches))
+    abstract = mesh.abstract_mesh((2, 4), ("data", "model"))
+    keys = ("flops", "bytes_accessed", "collective_bytes", "fallbacks")
+    counted = dryrun.trace_cell(cfg, shape, abstract)
+    assert set(calls) == SCANS[arch]
+    monkeypatch.setattr(scan_mod, "_counter_for", lambda carry: None)
+    del calls[:]
+    unrolled = dryrun.trace_cell(cfg, shape, abstract)
+    assert calls == [] and unrolled["temp_slack"] == 0
+    assert {k: counted[k] for k in keys} == {k: unrolled[k] for k in keys}
+    assert counted["flops"] > 0 and counted["collective_bytes"]["total"] > 0
+    peak, want = counted["temp_size"], unrolled["temp_size"]
+    if base.kind == "train":
+        assert want <= peak <= want + counted["temp_slack"]
+    else:
+        assert peak == want
