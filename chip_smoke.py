@@ -14,6 +14,7 @@ Phases (one line each; any failure exits non-zero, and the final ``ok``
 line is printed only when every phase passed):
 
   1 environment: the card and its power limit, the kernels' build time
+    (phase 3's dataset, exact graph and ground truth are made meanwhile)
   2 each kernel vs its plain version at the engine shape (T=2048 tasks,
     R=64 slots, d=128, N=10^6; ~25% dummies), both metrics, then a padded
     T; per-launch device time (CUDA events, median of 240 launches over
@@ -24,7 +25,9 @@ line is printed only when every phase passed):
     32} lanes in one launch (8: phase 10's; each lane 250,000 rows of the
     corpus, its own ids), with lane g of each launch held bit-equal to a
     G=1 launch on lane g; and the launch floor, a one-element add timed
-    both ways
+    both ways; then the hold check: B1 at the engine shape, B3 at phi3's
+    prefill and B4 cold at phi3's decode timed under the fixed hold this
+    script used before and under the sized hold, medians within 5%
   3 the pool at full size: the quickstart's stream over 1024 queries,
     drained; recall@10 against exact kNN on the card; the stream's first
     512 requests through the port on the CPU over the same index for
@@ -174,6 +177,19 @@ line is printed only when every phase passed):
     tensors over the fake backend) through the dry run's CLI, its counts
     printed
 
+Every device time is taken behind holds: a sleep kernel keeps the stream
+waiting while the host enqueues the timed calls. The launch queue takes
+about 1,000 kernels and timing events, so the calls go in batches of at
+most 64 calls and 3 ms of projected enqueue (the host's fastest call so
+far), each behind a hold of twice that plus 2 ms (2 ms alone where the
+device has not finished the batch two back), enqueued right behind the
+batch before. An event recorded after each hold must still be pending when the
+host has enqueued the batch: the device had not reached the calls, so it
+never waited for the host. Where it is not, the batch is timed again
+behind a hold twice as long, up to 1 s, and then the phase fails. Each
+phase ends with a line ``phase N took X s, held Y s, Z guard
+re-timings``.
+
 The pool's and the cluster's clocks are simulated and priced by the JAX
 package's V5E model; phase 11 prints its simulated TTFT and TPOT labelled
 so, and no other latency from that clock is printed. Every time printed here is a host
@@ -181,10 +197,12 @@ wall clock or a CUDA-event time measured on the card in this run.
 """
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -249,38 +267,178 @@ def quickstart_stream(n, seed=0):
     return out
 
 
-def device_ms(fn, arg_sets, n=240, hold_cycles=2_000_000_000):
+# The hold: while the host enqueues timed calls, a sleep kernel holds the
+# stream, so the events time the device's work and not the host's launch
+# gaps. The launch queue takes ~1,000 kernels and timing events; past that
+# the host waits for the device, so no hold covers more. The calls go in
+# batches of at most BATCH_CALLS calls and BATCH_S of projected enqueue (a
+# few hundred entries), each behind its own hold of HOLD_MULT times that
+# enqueue plus HOLD_MARGIN_S (HOLD_MARGIN_S alone where the device has not
+# finished the batch two back), enqueued right behind the batch before it.
+# The guard doubles a batch's hold up to HOLD_CAP_S (about the fixed
+# 2e9-cycle hold this script used before) when the host outran it, then
+# fails.
+HOLD_MULT, HOLD_MARGIN_S, HOLD_CAP_S = 2.0, 0.002, 1.0
+BATCH_CALLS, BATCH_S = 64, 0.003
+# seconds held and the guard's re-timings, summed over the run
+HELD = {"s": 0.0, "retimes": 0}
+
+
+def mark():
+    """A phase's start: the wall clock, the seconds held and the guard's
+    re-timings so far."""
+    return time.perf_counter(), HELD["s"], HELD["retimes"]
+
+
+def took(label, since):
+    """Print ``<label> took X s`` with the seconds held and the guard's
+    re-timings since ``since`` (a ``mark``)."""
+    t, held_s, retimes = since
+    print(f"{label} took {time.perf_counter() - t:.1f} s, held "
+          f"{HELD['s'] - held_s:.3f} s, {HELD['retimes'] - retimes} guard "
+          "re-timings", flush=True)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz():
+    """The card's maximum SM clock (Hz), read by nvidia-smi. A hold of s
+    seconds sleeps s times this many cycles: at a lower clock it lasts
+    longer, never shorter."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits",
+         "-i", "0"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()
+    return float(mhz) * 1e6
+
+
+def hold_seconds(enqueue_s):
+    """The hold that covers ``enqueue_s`` of projected host enqueue."""
+    return min(HOLD_MULT * enqueue_s + HOLD_MARGIN_S, HOLD_CAP_S)
+
+
+def hold_cycles(seconds, clock_hz):
+    """A hold of ``seconds`` in cycles of ``clock_hz``, for ``_sleep``."""
+    return math.ceil(seconds * clock_hz)
+
+
+def batch_calls(call_s):
+    """Calls in a batch, at ``call_s`` of projected enqueue a call."""
+    return max(1, min(BATCH_CALLS, int(BATCH_S / max(call_s, 1e-9))))
+
+
+def covered_run(hold_s, enqueue, sleep, event):
+    """Hold the stream for ``hold_s`` (``sleep``), record ``event`` behind
+    the hold, then ``enqueue`` the timed calls. True when the event was
+    still pending once the host had enqueued the last call: the device
+    had not reached the calls yet, so it never waited for the host
+    between them."""
+    sleep(hold_s)
+    event.record()
+    enqueue()
+    return not event.query()
+
+
+def guarded(run, hold_s, name):
+    """``run(hold_s)`` (a ``covered_run``) until it is covered, doubling
+    the hold each time it is not; a run the cap does not cover fails
+    ``name``'s phase."""
+    while True:
+        covered = run(hold_s)
+        HELD["s"] += hold_s
+        if covered:
+            return
+        check(hold_s < HOLD_CAP_S,
+              f"{name}: the host's enqueue outran a {hold_s:.3f} s hold")
+        hold_s = min(2 * hold_s, HOLD_CAP_S)
+        HELD["retimes"] += 1
+
+
+def fn_name(fn):
+    """A timed function's name, a lambda's with its line in this file."""
+    code = getattr(fn, "__code__", None)
+    where = f" (line {code.co_firstlineno})" if code else ""
+    return getattr(fn, "__qualname__", repr(fn)) + where
+
+
+def device_ms(fn, arg_sets, n=240, hold_s=None, name=None):
     """Device time per call (ms): (median of a CUDA event pair around each
-    call, back to back: one event pair around ``n`` calls, over ``n``).
-    The stream is held by a sleep kernel while the host enqueues, so the
-    events time the device work, not the host's launch gaps."""
+    call, back to back: an event pair around each batch of calls, summed
+    over the batches, over ``n``). Each batch waits behind a hold of
+    ``hold_seconds`` of its projected enqueue, or of HOLD_MARGIN_S alone
+    where the device has not finished the batch two back, checked by
+    ``guarded``. The projection is the host's fastest enqueue of a call so
+    far: a warm-up call inside its event pair (as the first loop makes
+    it), then each batch's calls. ``hold_s`` instead puts all ``n`` calls
+    of the first loop behind one hold of that length and skips the second
+    (the hold check's old hold: the check compares medians)."""
     import torch
 
+    pair = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    enqueue = []
     for args in arg_sets[:4]:
+        t0 = time.perf_counter()
+        pair[0].record()
         fn(*args)
+        pair[1].record()
+        enqueue.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
+    call_s = min(enqueue)
+    name = name or fn_name(fn)
+    clock = sm_clock_hz()
+    held = torch.cuda.Event()
     ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(n + 1)]
-    # ~1 s of GPU clock: longer than the host takes to enqueue n calls of
-    # the slowest function timed here (~0.1 s for 240 plain one-hot calls)
-    torch.cuda._sleep(hold_cycles)
-    for i, (a, b) in enumerate(ev[:n]):
-        a.record()
-        fn(*arg_sets[i % len(arg_sets)])
-        b.record()
-    torch.cuda.synchronize()
-    times = sorted(a.elapsed_time(b) for a, b in ev[:n])
-    start, end = ev[n]
-    torch.cuda._sleep(hold_cycles)
-    start.record()
-    for i in range(n):
-        fn(*arg_sets[i % len(arg_sets)])
-    end.record()
-    torch.cuda.synchronize()
-    return times[n // 2], start.elapsed_time(end) / n
+           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    b2b = []
+
+    def sleep(s):
+        torch.cuda._sleep(hold_cycles(s, clock))
+
+    def pairs(i0, i1):
+        for i in range(i0, i1):
+            ev[i][0].record()
+            fn(*arg_sets[i % len(arg_sets)])
+            ev[i][1].record()
+
+    def back_to_back(i0, i1):
+        b2b[-1][0].record()
+        for i in range(i0, i1):
+            fn(*arg_sets[i % len(arg_sets)])
+        b2b[-1][1].record()
+
+    for loop in (pairs,) if hold_s else (pairs, back_to_back):
+        i0, ends = 0, []  # ends: the event closing each batch so far
+        while i0 < n:
+            i1 = n if hold_s else min(n, i0 + batch_calls(call_s))
+            spent = []
+
+            def enqueue_batch(i0=i0, i1=i1):
+                t0 = time.perf_counter()
+                loop(i0, i1)
+                spent.append(time.perf_counter() - t0)
+
+            # the device has not finished the batch two back (the host is
+            # two batches ahead, as where the device is the slower): it
+            # reaches this batch's calls only after all of the batch
+            # before, so the hold is the margin alone
+            behind = len(ends) > 1 and not ends[-2].query()
+            if loop is back_to_back:
+                b2b.append((torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True)))
+            guarded(lambda h: covered_run(h, enqueue_batch, sleep, held),
+                    hold_s or (HOLD_MARGIN_S if behind else
+                               hold_seconds((i1 - i0) * call_s)), name)
+            ends.append(ev[i1 - 1][1] if loop is pairs else b2b[-1][1])
+            call_s = min([call_s] + [t / (i1 - i0) for t in spent])
+            i0 = i1
+        torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in ev)
+    if hold_s:
+        return times[n // 2], None
+    return times[n // 2], sum(a.elapsed_time(b) for a, b in b2b) / n
 
 
-def graph_ms(fn, arg_sets, n, hold_cycles):
+def graph_ms(fn, arg_sets, n, hold_s=None):
     """``device_ms`` of replaying one CUDA graph of ``fn`` per arg set: the
     device time of a call made of several kernels, without the host's gaps
     between them."""
@@ -298,7 +456,7 @@ def graph_ms(fn, arg_sets, n, hold_cycles):
         with torch.cuda.graph(g):
             fn(*args)
         graphs.append((g,))
-    return device_ms(lambda g: g.replay(), graphs, n, hold_cycles)
+    return device_ms(lambda g: g.replay(), graphs, n, hold_s, fn_name(fn))
 
 
 def host_ms(fn, arg_sets, n=240):
@@ -413,14 +571,76 @@ def check_distance(name, kern, plain, sets, metric):
 
 
 def time_distance(fn, sets):
-    """``device_ms`` of l2 calls of ``fn`` over the sets (a 0.25 s hold:
-    the host enqueues 240 plain one-hot calls in ~20 ms)."""
-    return device_ms(lambda *a: fn(*a, metric="l2"), sets,
-                     hold_cycles=500_000_000)
+    """``device_ms`` of l2 calls of ``fn`` over the sets."""
+    return device_ms(lambda *a: fn(*a, metric="l2"), sets, name=fn_name(fn))
 
 
 LANES = (1, 4, 8, 16, 32)  # phase 2's lane sweep (8: phase 10's launch)
 SHARDS = 4  # phase 3's corpus cut into 4 shards of 250,000 rows
+# the fixed holds (cycles) this script used before its holds were sized:
+# time_distance's, device_ms's default and the decode replays'
+OLD_HOLDS = {"B1": 500_000_000, "B3": 2_000_000_000, "B4": 1_000_000_000}
+
+
+def engine_sets(db_t, queries, R=64, T=2048):
+    """Phase 2's 128 task sets at the engine shape: R query slots, T tasks
+    of random ids with 25% dummies, slots in the engine's layout."""
+    import numpy as np
+    import torch
+
+    dev = db_t.device
+    rng = np.random.default_rng(2)
+    q_t = torch.as_tensor(queries[:R], device=dev)
+    slot_np = np.repeat(np.arange(R, dtype=np.int32), T // R)  # engine layout
+    slot = torch.as_tensor(slot_np, device=dev)
+    sets = []
+    for _ in range(128):
+        ids = rng.integers(0, N, size=T).astype(np.int32)
+        ids[rng.random(T) < 0.25] = -1
+        sets.append((db_t, q_t, torch.as_tensor(ids, device=dev), slot))
+    return sets
+
+
+def hold_check(db_t, queries):
+    """The sized hold against the fixed one it replaced, in turns on three
+    cases: B1 at the engine shape (phase 2's sets), B3 at phi3's prefill
+    (4, 512, 40/10, 128) bf16 (phase 6's first case) and B4 cold at phi3's
+    decode (4, 544, 40/10, 128) bf16, cur_len 543 (graph replay over 10
+    sets), each timed under its old hold (one hold around the event-pair
+    loop, which the old holds covered: at most ~720 launch-queue entries),
+    then under the sized one, the guard on both; the two event-pair
+    medians within 5%. Returns [(case, old ms, sized ms)]."""
+    import torch
+
+    from repro_torch.kernels import decode_attention, distance, flash_attention
+
+    def randn(shape, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    prefill = [prefill_inputs(4, 512, 40, 10, 128, torch.bfloat16, False, 0)]
+    decode = [(randn((4, 40, 128), 3 * c), randn((4, 544, 10, 128), 3 * c + 1),
+               randn((4, 544, 10, 128), 3 * c + 2)) for c in range(10)]
+    cases = (
+        ("B1 (2048, 64, 128) l2", "B1", device_ms, lambda *a: (
+            distance.distance_slot_gather(*a, metric="l2")),
+         engine_sets(db_t, queries), 240),
+        ("B3 (4, 512, 40/10, 128) bf16", "B3", device_ms, lambda q, k, v: (
+            flash_attention.flash_attention(q, k, v, causal=True)), prefill, 40),
+        ("B4 (4, 544, 40/10, 128) bf16 cur_len 543 cold", "B4", graph_ms,
+         lambda q, k, v: decode_attention.decode_attention(q, k, v, 543),
+         decode, 200))
+    out = []
+    for label, key, timer, fn, arg_sets, n in cases:
+        old = timer(fn, arg_sets, n, OLD_HOLDS[key] / sm_clock_hz())[0]
+        new = timer(fn, arg_sets, n)[0]
+        check(abs(new - old) <= 0.05 * old,
+              f"hold check {label}: {new:.6f} ms under the sized hold vs "
+              f"{old:.6f} ms under the old")
+        out.append((label, old, new))
+    del prefill, decode
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_kernels(db_t, queries):
@@ -432,22 +652,13 @@ def phase_kernels(db_t, queries):
     the 4 shards of the corpus (250,000 rows each) repeated up to 8 times
     (4 shards x 8 replicas; G=32 holds 4.1 GB), each lane its own ids; G = 8
     is phase 10's launch (4 shards x 2 replicas)."""
-    import numpy as np
     import torch
 
     from repro_torch.kernels import distance, ref
 
     dev = db_t.device
     R, T = 64, 2048
-    rng = np.random.default_rng(2)
-    q_t = torch.as_tensor(queries[:R], device=dev)
-    slot_np = np.repeat(np.arange(R, dtype=np.int32), T // R)  # engine layout
-    slot = torch.as_tensor(slot_np, device=dev)
-    sets = []
-    for _ in range(128):
-        ids = rng.integers(0, N, size=T).astype(np.int32)
-        ids[rng.random(T) < 0.25] = -1
-        sets.append((db_t, q_t, torch.as_tensor(ids, device=dev), slot))
+    sets = engine_sets(db_t, queries)
     plain = {"distance_slot_gather": ref.distance_tasks_ref,
              "distance_onehot": ref.distance_tasks_onehot_ref}
     kern = {"distance_slot_gather": distance.distance_slot_gather,
@@ -573,12 +784,8 @@ def exp_rate():
     card."""
     import torch
 
-    mhz = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits",
-         "-i", "0"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return EXP_PER_CLOCK_SM * sms * float(mhz) * 1e6
+    return EXP_PER_CLOCK_SM * sms * sm_clock_hz()
 
 
 def prefill_inputs(B, S, H, Hkv, hd, dtype, view, seed, Sk=None):
@@ -721,7 +928,6 @@ def phase_attention():
     # then gemma-7b's 16/16 at hd 256, deepseek-moe-16b's 16/16 at hd 128,
     # seamless-m4t's 16/16 at hd 64 and jamba's 64/8 at hd 128 (bf16, the
     # longest step)
-    hold = 1_000_000_000  # ~0.5 s: covers the host's enqueue of 200 replays
     decode_cases = [((4, 544, 40, 10, 128), dt, (0, 271, 543))
                     for dt in (torch.bfloat16, torch.float32)]
     decode_cases.append(((4, 544, 16, 16, 256), torch.bfloat16, (543,)))
@@ -774,8 +980,8 @@ def phase_attention():
                    "library_ms": sdpa}
             times = {}  # each call replayed from a CUDA graph of it
             for key, fn in fns.items():
-                times["warm_" + key] = graph_ms(fn, cold[:1], 200, hold)[0]
-                times[key] = graph_ms(fn, cold, 200, hold)[0]  # cold: main figure
+                times["warm_" + key] = graph_ms(fn, cold[:1], 200)[0]
+                times[key] = graph_ms(fn, cold, 200)[0]  # cold: main figure
             n_valid = cur + 1
             nbytes = (2 * q.numel() + 2 * B * n_valid * Hkv * hd) * q.element_size()
             bound, by = attention_bound(nbytes, 4 * B * H * hd * n_valid,
@@ -2193,16 +2399,15 @@ def phase_lse():
         torch.cuda.synchronize()
         lib_err = max(close(lib[0], want, 2e-2)[0],
                       close(lib[1], want_lse, 1e-3)[0])
-        hold = 1_000_000_000
         times = {
             "ms": graph_ms(lambda q, k, v: decode_attention.decode_attention(
-                q, k, v, cur, return_lse=True), sets, 200, hold)[0],
+                q, k, v, cur, return_lse=True), sets, 200)[0],
             "no_lse_ms": graph_ms(lambda q, k, v: decode_attention
-                                  .decode_attention(q, k, v, cur), sets, 200,
-                                  hold)[0],
+                                  .decode_attention(q, k, v, cur), sets,
+                                  200)[0],
             "plain_ms": graph_ms(lambda q, k, v: ref.decode_attn_ref(
-                q, k, v, cur, return_lse=True), sets, 200, hold)[0],
-            "library_ms": graph_ms(lse_library, sets, 200, hold)[0]}
+                q, k, v, cur, return_lse=True), sets, 200)[0],
+            "library_ms": graph_ms(lse_library, sets, 200)[0]}
         nbytes = ((2 * q.numel() + 2 * B * S * Hkv * hd) * 2 + B * H * 4)
         bound, by = attention_bound(nbytes, 4 * B * H * hd * S, 0, 1.0,
                                     torch.bfloat16)
@@ -2355,6 +2560,7 @@ def training_phases(smi):
                  "attend_blocked, torch ops under autograd; the kernels have "
                  "no backward)")
     t0 = time.perf_counter()
+    since = mark()
     tx = phase_train_xlstm()
     h = tx["hist"]
     same = ("bit for bit" if tx["bitwise"] else "not bit for bit") + \
@@ -2382,7 +2588,9 @@ def training_phases(smi):
           f"uninterrupted run's ({same}) "
           f"| {no_kernel} | {smi} | {time.perf_counter() - t0:.1f} s",
           flush=True)
+    took("phase 20", since)
     t0 = time.perf_counter()
+    since = mark()
     t1 = phase_train_100m()
     h, y = t1["hist"], t1["yard"]
     print(f"phase 21 train {t1['cfg'].name} (examples/train_100m.py "
@@ -2406,7 +2614,9 @@ def training_phases(smi):
           f"host wall {y['sdpa_wall_ms']:.4f} ms; outputs "
           f"and gradients within {y['err']:.3g} | {no_kernel} | {smi} | "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    took("phase 21", since)
     t0 = time.perf_counter()
+    since = mark()
     tc = phase_train_card_vs_cpu()
     print("phase 22 train card vs cpu (f32 smoke configs, one set of weights "
           "and one batch): " + "; ".join(
@@ -2416,6 +2626,7 @@ def training_phases(smi):
               f" within {r['h_rel']:.3g} (1e-4), {r['wall_s']:.1f} s"
               for arch, r in tc.items() if arch != "launched")
           + f" | {no_kernel} | {time.perf_counter() - t0:.1f} s", flush=True)
+    took("phase 22", since)
     return tx["launched"] + t1["launched"] + tc["launched"]
 
 
@@ -2438,23 +2649,45 @@ def main():
     kind = torch.cuda.get_device_name(0)
     torch.backends.cuda.matmul.allow_tf32 = False  # full-fp32 references
     torch.backends.cudnn.allow_tf32 = False
-    t_start = t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    run_mark = since = mark()
     sources = ("distance", "attention")  # csrc/<name>.cu, one nvcc each
+
+    def build(name):
+        _build.load(name)
+        return time.perf_counter()
+
+    # the builds run while phase 3's dataset, exact graph and ground truth
+    # are made (none needs a kernel); every build is joined before phase 2
+    # loads a source
     with ThreadPoolExecutor(len(sources)) as ex:
-        list(ex.map(_build.load, sources))  # a failed build raises here
-    build_s = time.perf_counter() - t0
+        built = [ex.submit(build, name) for name in sources]
+        t1 = time.perf_counter()
+        db, queries = make_dataset(N, D_IM, seed=0, num_queries=NUM_QUERIES)
+        data_s = time.perf_counter() - t1
+        cfg = VectorPoolConfig(num_vectors=N, dim=D_IM)
+        t1 = time.perf_counter()
+        graph = make_cagra_graph(db, cfg.graph_degree, exact_threshold=N,
+                                 device="cuda")
+        graph_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        true_ids, _ = exact_knn(db, queries, cfg.top_k, device="cuda")
+        gt_s = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        prep_s = time.perf_counter() - t0
+        build_s = max(f.result() for f in built) - t0  # a failed build raises
     print(f"phase 1 environment: {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | devices {torch.cuda.device_count()} | "
           f"kernels built in {build_s:.2f} s ({', '.join(sources)}, in "
-          "parallel)", flush=True)
-
-    t0 = time.perf_counter()
-    db, queries = make_dataset(N, D_IM, seed=0, num_queries=NUM_QUERIES)
-    data_s = time.perf_counter() - t0
+          f"parallel; phase 3's dataset, graph and ground truth made beside "
+          f"them in {prep_s:.1f} s)", flush=True)
+    took("phase 1", since)
 
     # ---- phase 2: kernels vs plain versions at the engine shape ----------
+    since = mark()
     db_t = torch.as_tensor(db, device="cuda")
     kres = phase_kernels(db_t, queries)
+    holds = hold_check(db_t, queries)
     del db_t
     floor = kres["distance_slot_gather"]
 
@@ -2480,17 +2713,14 @@ def main():
         "call gathers rows by id and reduces each against its own slot's "
         f"query | lane g of every G-lane launch equal to its own launch | "
         f"{smi}", flush=True)
+    print("phase 2 hold check (event-pair median, ms; the fixed hold this "
+          "script used before, then the sized hold; within 5%): " + "; ".join(
+              f"{label}: {old:.6f} vs {new:.6f} ({new / old - 1:+.2%})"
+              for label, old, new in holds), flush=True)
+    took("phase 2", since)
 
-    # ---- phase 3: the pool at full size ------------------------------------
-    cfg = VectorPoolConfig(num_vectors=N, dim=D_IM)
-    t0 = time.perf_counter()
-    graph = make_cagra_graph(db, cfg.graph_degree, exact_threshold=N,
-                             device="cuda")
-    graph_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    true_ids, _ = exact_knn(db, queries, cfg.top_k, device="cuda")
-    gt_s = time.perf_counter() - t0
-    torch.cuda.empty_cache()
+    # ---- phase 3: the pool at full size (its index made in phase 1) -------
+    since = mark()
     stream = quickstart_stream(NUM_QUERIES)
 
     torch.cuda.reset_peak_memory_stats()
@@ -2531,8 +2761,10 @@ def main():
           f"top-10 lists equal {same:.4f}, extends equal "
           f"{float((ext_gpu[:N_CPU] == ext_cpu).mean()):.4f}, {wall_cpu:.1f} s",
           flush=True)
+    took("phase 3", since)
 
     # ---- phase 4: the one-hot form on the first 256 queries ---------------
+    since = mark()
     n4 = 256
     cfg4 = dataclasses.replace(cfg, distance_mode="matmul_onehot")
     distance.reset_launches()
@@ -2549,8 +2781,10 @@ def main():
           f"equal {float((ids4 == ids_gpu[:n4]).all(axis=1).mean()):.4f}, "
           f"{wall4:.2f} s, launches {onehot_launches}",
           flush=True)
+    took("phase 4", since)
 
     # ---- phase 5: the paths went through the kernels -----------------------
+    since = mark()
     launches = {"distance_slot_gather":
                 main_launches["distance_slot_gather"],
                 "distance_onehot": onehot_launches["distance_onehot"]}
@@ -2562,12 +2796,11 @@ def main():
     print(f"phase 5 kernels: launches {launches} "
           f"(extend steps {m.extend_steps} slot_gather, "
           f"{pool4.metrics.extend_steps} onehot)", flush=True)
-
-    print(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+    took("phase 5", since)
+    took("phases 1-5", run_mark)
 
     # ---- phase 6: attention kernels vs plain versions ----------------------
-    t0 = time.perf_counter()
+    since = mark()
     ares = phase_attention()
     fr = ares["flash_attention"]
     print(f"phase 6 flash_attention: max_abs_err={fr['max_abs_err']:.3g} | " + "; ".join(
@@ -2586,7 +2819,7 @@ def main():
         f"{c['warm_plain_ms']:.5f} library_ms(sdpa)={c['warm_library_ms']:.5f}"
         f" (sdpa vs plain {c['library_err']:.3g}) bound_ms={c['bound_ms']:.6f} "
         f"({c['bound_by']})" for c in dr["cases"]), flush=True)
-    print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
+    took("phase 6", since)
 
     # ---- phase 7: the serving path at full width ---------------------------
     def serve_line(phase, srv, t0, cut=""):
@@ -2607,14 +2840,17 @@ def main():
                 f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    since = mark()
     # phases 7, 9 and 12 run half their published depth, widths kept, to
     # leave the time limit room for the training phases 20-22
     srv = phase_serve("phi3-medium-14b", "flash_wgmma",  # frees its weights
                       num_layers=20)
     print(serve_line(7, srv, t0, cut=half_cut("phi3-medium-14b")), flush=True)
+    took("phase 7", since)
 
     # ---- phase 8: card vs CPU through the same entry point -----------------
     t0 = time.perf_counter()
+    since = mark()
     cmp_ = phase_card_vs_cpu()
     print(f"phase 8 card vs cpu (phi3 widths, 2 layers, f32): tokens equal "
           f"{cmp_['toks'].tolist()}, prefill logits max |card - cpu| "
@@ -2622,14 +2858,18 @@ def main():
           f"{cmp_['setup_s']:.1f} s, generate on the card {cmp_['card_s']:.1f}"
           f" s, on the CPU {cmp_['cpu_s']:.1f} s | "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    took("phase 8", since)
 
     # ---- phase 9: gemma-7b at full width, the hd-256 wgmma variant's path ---
     t0 = time.perf_counter()
+    since = mark()
     gem = phase_serve("gemma-7b", "flash_wgmma256", num_layers=14)
     print(serve_line(9, gem, t0, cut=half_cut("gemma-7b")), flush=True)
+    took("phase 9", since)
 
     # ---- phase 10: the sharded, megabatched pool at full size --------------
     # its first P10_PROBES requests (to leave room for phase 23)
+    since = mark()
     sh = phase_sharded(db, queries, stream[:P10_PROBES],
                        true_ids[:P10_PROBES])
     red = sh["red"]
@@ -2664,8 +2904,10 @@ def main():
           f"{sh['oh_same']:.4f}, launches {sh['oh_launches']} by G "
           f"{sh['oh_lanes']}, {sh['oh_wall']:.1f} s | {smi} | "
           f"{sh['phase_s']:.1f} s", flush=True)
+    took("phase 10", since)
 
     # ---- phase 11: the Trinity cluster over phase 10's pool ---------------
+    since = mark()
     cl = phase_cluster(db, sh.pop("cluster_shards"))
     s11, fx = cl["summary"], cl["fixture"]
     print(f"phase 11 cluster (rag-cluster-sift1m-shape): ClusterSim "
@@ -2701,15 +2943,19 @@ def main():
           f"equal, {fx['requests']} requests, cache hits {fx['hits']}, "
           f"{fx['wall_card']:.2f} s vs {fx['wall_cpu']:.2f} s | {smi} | "
           f"{cl['phase_s']:.1f} s", flush=True)
+    took("phase 11", since)
 
     # ---- phase 12: deepseek-moe-16b at its widths, half its depth (MoE) -
     t0 = time.perf_counter()
+    since = mark()
     dsm = phase_serve("deepseek-moe-16b", "flash_wgmma", num_layers=14)
     print(serve_line(12, dsm, t0, cut=half_cut("deepseek-moe-16b")),
           flush=True)
+    took("phase 12", since)
 
     # ---- phase 13: deepseek-v3-671b at full width, depth 1 (MLA, MoE, MTP)
     t0 = time.perf_counter()
+    since = mark()
     dsv = phase_serve("deepseek-v3-671b", None, num_layers=1)
     mla_t = phase_mla_attention()
     lib = ("SDPA refused these inputs" if mla_t["library_ms"] is None else
@@ -2721,9 +2967,11 @@ def main():
           f"bf16, torch ops): ms={mla_t['ms']:.5f}, {lib}, bound_ms="
           f"{mla_t['bound_ms']:.6f} ({mla_t['bound_by']}), vs its float32 run "
           f"{mla_t['err']:.3g}", flush=True)
+    took("phase 13", since)
 
     # ---- phase 14: the DeepSeek family, card vs CPU --------------------------
     t0 = time.perf_counter()
+    since = mark()
     dcc = phase_deepseek_card_vs_cpu()
     print("phase 14 card vs cpu (DeepSeek, f32): " + "; ".join(
         f"{name}: tokens equal {r['toks'].tolist()}, prefill logits max "
@@ -2734,9 +2982,11 @@ def main():
         + f"; deepseek-v3's MLA layer at its published widths: forward and 8 "
         f"decode steps within {dcc['mla_layer_err']:.3g} (1e-3) | "
         f"{time.perf_counter() - t0:.1f} s", flush=True)
+    took("phase 14", since)
 
     # ---- phase 15: CAGRA's per-request baseline on phase 3's index ---------
     t0 = time.perf_counter()
+    since = mark()
     sb = phase_search_batch(db, graph, queries, true_ids, ext_gpu, ids_gpu, cfg)
     print(f"phase 15 search_batch (per-request lockstep, A4): {NUM_QUERIES} "
           f"queries over phase 3's {N} x {D_IM} index, top_m {cfg.top_m}, p "
@@ -2747,31 +2997,39 @@ def main():
           f"top-10 lists equal to the pool's {sb['same']:.4f}, wall "
           f"{sb['wall_s']:.3f} s ({NUM_QUERIES / sb['wall_s']:.1f} queries per "
           f"wall-second) | {time.perf_counter() - t0:.1f} s", flush=True)
+    took("phase 15", since)
 
     # ---- phases 16-18: xLSTM, the encoder-decoder and the mamba hybrid ----
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
+    since = mark()
     xls = phase_serve("xlstm-350m", None)
     print(serve_line(16, xls, t0) + " | no B3/B4 launch (xLSTM is torch ops; "
           "weights the analytic count covers: equal to it, but for the "
           f"reference's sLSTM rounding of {analytic_excess(xls['cfg'])})",
           flush=True)
+    took("phase 16", since)
     t0 = time.perf_counter()
+    since = mark()
     sml = phase_serve("seamless-m4t-large-v2", "flash_wgmma")
     print(serve_line(17, sml, t0) + " | bf16 stub frames (ones x 0.1); B3 on "
           "12 encoder, 12 decoder and 12 cross-attention layers; decode's "
           "cross-attention over the reference server's zero ck/cv (torch ops)",
           flush=True)
+    took("phase 17", since)
     t0 = time.perf_counter()
+    since = mark()
     jam_cfg = get_config("jamba-1.5-large-398b")
     jam = phase_serve("jamba-1.5-large-398b", "flash_wgmma", num_layers=8,
                       moe=dataclasses.replace(jam_cfg.moe, num_experts=8))
     print(serve_line(18, jam, t0, cut=" (72 layers cut to one group of 8, 16 "
                      "experts to 8, every width and top-2 kept)"), flush=True)
+    took("phase 18", since)
 
     # ---- phase 19: the three families, card vs CPU ------------------------
     t0 = time.perf_counter()
+    since = mark()
     fcc = phase_family_card_vs_cpu()
     print("phase 19 card vs cpu (xLSTM, encdec, mamba hybrid, f32): " + "; ".join(
         f"{name}: tokens equal {r['toks'].tolist()}, prefill logits max "
@@ -2783,11 +3041,13 @@ def main():
         f"published widths: forward and 8 decode steps within "
         f"{fcc['layers_err']:.3g} (1e-3) | {time.perf_counter() - t0:.1f} s",
         flush=True)
+    took("phase 19", since)
 
     # ---- phases 20-22: training (no B1-B4 launch by design) ---------------
     train_launches = training_phases(smi)
 
     # ---- phase 23: the mesh code (seqshard decode, B4's lse, the dry run) --
+    since = mark()
     msh = phase_mesh()
     lse, dry = msh["lse"], msh["dryrun"]
     pd_, ma = dry["per_device"], dry["memory_analysis"]
@@ -2816,6 +3076,7 @@ def main():
           f"collective {pd_['collective_bytes']}, argument "
           f"{ma['argument_size']} B, output {ma['output_size']} B, temp "
           f"{ma['temp_size']} B | {smi} | {msh['phase_s']:.1f} s", flush=True)
+    took("phase 23", since)
 
     # launches on each kernel's path: B1/B2 on the pool (phases 3, 4); B3's
     # total, its wgmma variant and B4 on phi3's serving path (phase 7); the
@@ -2939,7 +3200,7 @@ def main():
                     entry[key]["cases"] = [{k: c[k] for k in keys}
                                            for c in mine]
         line.append(entry)
-    print(f"all phases took {time.perf_counter() - t_start:.1f} s", flush=True)
+    took("all phases", run_mark)
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
